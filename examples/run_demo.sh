@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # End-to-end demo on a bundled synthetic Indonesian corpus: vocabulary ->
 # feature cache -> multitask training -> BLEU evaluation -> single-image
-# caption -> serving smoke. Runs on CPU or TPU (JAX picks the backend).
+# caption -> serving smoke. Runs on the CPU by default; on a GPU host run it
+# with JAX_PLATFORMS=cuda.
 #
 # Usage: bash examples/run_demo.sh [workdir]
 set -euo pipefail
@@ -9,9 +10,8 @@ cd "$(dirname "$0")/.."
 WORK="${1:-/tmp/icee_demo}"
 mkdir -p "$WORK"
 export PYTHONPATH="$PWD${PYTHONPATH:+:$PYTHONPATH}"
-# demo defaults to CPU (fast compiles, no TPU contention); override with
-#   ICEE_PLATFORM=tpu bash examples/run_demo.sh
-export ICEE_PLATFORM="${ICEE_PLATFORM:-cpu}"
+# demo defaults to the CPU (fast compiles at these toy sizes)
+export JAX_PLATFORMS="${JAX_PLATFORMS-cpu}"
 
 DATA="examples/data"
 echo "== 1/6 building vocabulary =="
@@ -55,8 +55,8 @@ python -m icee_tpu.cli.sample \
 echo "== 6/6 serving smoke (background server + one request) =="
 python - <<'PY'
 import json, threading, urllib.request
-from icee_tpu.cli.common import apply_platform_env
-apply_platform_env()
+from icee_tpu.core.backend import start_entry_point
+start_entry_point()
 from icee_tpu.serve.app import serve
 from icee_tpu.serve.config import ServeConfig
 from icee_tpu.serve.engine import CaptionEngine

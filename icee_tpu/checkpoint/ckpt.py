@@ -2,14 +2,15 @@
 
 Replaces the reference's two ad-hoc formats — per-epoch ``state_dict`` files
 (``train.py:214-220``) and whole-module pickles with both optimizers and
-BLEU bookkeeping (``utils.py:63-90``) — with ONE orbax checkpoint holding
-params + optimizer states + counters, saved as
-``{mode}_checkpoint_{name}`` plus a ``{mode}_BEST_checkpoint_{name}`` copy on
-improvement, mirroring the reference's naming contract.
+BLEU bookkeeping (``utils.py:63-90``) — with ONE checkpoint
+(``checkpoint/npz.py``: NumPy arrays + a JSON tree) holding params +
+optimizer states + counters, saved as ``{mode}_checkpoint_{name}`` plus a
+``{mode}_BEST_checkpoint_{name}`` copy on improvement, mirroring the
+reference's naming contract.
 
-Restore requires a structure template (build a fresh training state, then
-``load_checkpoint(path, template)``) — the standard orbax pattern, and the
-analogue of the reference needing its module classes importable to unpickle.
+Exact optax state types come back from a structure template (build a fresh
+training state, then ``load_checkpoint(path, template)``) — the analogue of
+the reference needing its module classes importable to unpickle.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Any, Optional
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
+
+from icee_tpu.checkpoint import npz
 
 
 @dataclasses.dataclass
@@ -63,13 +65,12 @@ def save_checkpoint(
     """Save ``{mode}_checkpoint_{data_name}`` (+ BEST copy when improved)."""
     os.makedirs(folder, exist_ok=True)
     tree = jax.tree_util.tree_map(np.asarray, state.as_pytree())
-    ckptr = ocp.StandardCheckpointer()
-    path = _ckpt_path(folder, data_name, mode, best=False)
-    ckptr.save(path, tree, force=True)
+    meta = {"mode": mode, "data_name": data_name, "epoch": int(state.epoch)}
+    path = npz.save_tree(_ckpt_path(folder, data_name, mode, best=False),
+                         tree, meta)
     if is_best:
-        ckptr.save(_ckpt_path(folder, data_name, mode, best=True), tree,
-                   force=True)
-    ckptr.wait_until_finished()
+        npz.save_tree(_ckpt_path(folder, data_name, mode, best=True), tree,
+                      meta)
     return path
 
 
@@ -80,7 +81,7 @@ def load_params(path: str) -> dict:
     exact optax state types, see :func:`load_checkpoint`)."""
     import jax.numpy as jnp
 
-    tree = ocp.StandardCheckpointer().restore(os.path.abspath(path))
+    tree = npz.load_tree(path)
     return jax.tree_util.tree_map(jnp.asarray, tree["params"])
 
 
@@ -88,14 +89,4 @@ def load_checkpoint(path: str, template: Optional[dict] = None) -> dict:
     """Restore a checkpoint pytree.  ``template`` (same structure, abstract or
     concrete leaves) restores exact optax state types; without it the raw
     nested-dict form is returned."""
-    ckptr = ocp.StandardCheckpointer()
-    path = os.path.abspath(path)
-    if template is not None:
-        abstract = jax.tree_util.tree_map(
-            lambda x: ocp.utils.to_shape_dtype_struct(x)
-            if hasattr(x, "shape")
-            else x,
-            template,
-        )
-        return ckptr.restore(path, abstract)
-    return ckptr.restore(path)
+    return npz.load_tree(path, template)

@@ -6,9 +6,10 @@ whole epoch.  The reference can't do better (its host loop resumes only at
 epoch boundaries, ``stylenet/train_multitask.py:169-177``); this module goes
 beyond it: with ``TrainConfig.progress_chunk > 0`` the epoch runs as chunks
 of batch rows and a progress record lands on disk after every chunk, so a
-killed long TPU run resumes INSIDE the epoch, bit-identically.
+killed long run resumes INSIDE the epoch, bit-identically.
 
-The record is a plain pytree (orbax ``StandardCheckpointer``):
+The record is a plain pytree in the checkpoint format of
+``checkpoint/npz.py``:
 
 - ``epoch`` / ``pass_idx`` / ``row``: where the run was.  ``pass_idx``
   orders the passes inside one multitask epoch (0 = factual train,
@@ -39,7 +40,8 @@ from typing import Any, Optional
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
+
+from icee_tpu.checkpoint import npz
 
 
 def progress_path(folder: str, data_name: str) -> str:
@@ -47,48 +49,18 @@ def progress_path(folder: str, data_name: str) -> str:
         os.path.join(folder, f"progress_checkpoint_{data_name}"))
 
 
-def _live_path(folder: str, data_name: str) -> Optional[str]:
-    """The readable record: the primary path, or the ``.old`` survivor if a
-    kill landed between ``save_progress``'s two renames."""
-    path = progress_path(folder, data_name)
-    if os.path.isdir(path):
-        return path
-    if os.path.isdir(path + ".old"):
-        return path + ".old"
-    return None
-
-
 def save_progress(folder: str, data_name: str, record: dict) -> str:
     """Crash-atomically replace ``progress_checkpoint_{data_name}``.
 
     A preemption is by definition likely to land DURING a save, so the
-    previous record must survive until the new one is complete: the record
-    is written to ``<path>.new`` first, then swapped in with two directory
-    renames (prev -> ``.old``, new -> live).  A kill at any instant leaves
-    either the previous record, the ``.old`` survivor (found by
-    ``_live_path``), or the new record — never nothing.  (Writing straight
-    to the live path with ``force=True`` deletes the previous record before
-    the new one exists — a kill mid-save would lose ALL mid-epoch
-    progress; caught by the CLI kill/resume drill.)"""
-    import shutil
-
+    previous record must survive until the new one is complete:
+    :func:`icee_tpu.checkpoint.npz.save_tree` writes ``<path>.new`` first
+    and swaps it in with two renames.  A kill at any instant leaves the
+    previous record, its ``.old`` survivor, or the new record — never
+    nothing."""
     os.makedirs(folder, exist_ok=True)
     tree = jax.tree_util.tree_map(np.asarray, record)
-    ckptr = ocp.StandardCheckpointer()
-    path = progress_path(folder, data_name)
-    new, old = path + ".new", path + ".old"
-    if os.path.isdir(new):
-        shutil.rmtree(new)
-    ckptr.save(new, tree, force=True)
-    ckptr.wait_until_finished()
-    if os.path.isdir(old):
-        shutil.rmtree(old)
-    if os.path.isdir(path):
-        os.rename(path, old)
-    os.rename(new, path)
-    if os.path.isdir(old):
-        shutil.rmtree(old)
-    return path
+    return npz.save_tree(progress_path(folder, data_name), tree)
 
 
 def peek_progress(folder: str, data_name: str) -> Optional[dict]:
@@ -96,33 +68,21 @@ def peek_progress(folder: str, data_name: str) -> Optional[dict]:
     fields; returns None when no record exists.  The raw form is fine for
     scalars — ``load_progress`` re-restores with a template so the optax
     state types come back exact."""
-    path = _live_path(folder, data_name)
-    if path is None:
+    path = progress_path(folder, data_name)
+    if npz.live_path(path) is None:
         return None
-    raw = ocp.StandardCheckpointer().restore(path)
-    return raw
+    return npz.load_tree(path)
 
 
 def load_progress(folder: str, data_name: str, template: dict) -> dict:
     """Template-restore (exact optax state types, like ``ckpt.py``)."""
-    abstract = jax.tree_util.tree_map(
-        lambda x: ocp.utils.to_shape_dtype_struct(x)
-        if hasattr(x, "shape") else x,
-        template,
-    )
-    return ocp.StandardCheckpointer().restore(
-        _live_path(folder, data_name), abstract)
+    return npz.load_tree(progress_path(folder, data_name), template)
 
 
 def clear_progress(folder: str, data_name: str) -> None:
     """Remove the record and any swap remnants (training finished past
     it, or a stale interrupted save)."""
-    import shutil
-
-    path = progress_path(folder, data_name)
-    for p in (path, path + ".old", path + ".new"):
-        if os.path.isdir(p):
-            shutil.rmtree(p)
+    npz.remove(progress_path(folder, data_name))
 
 
 def make_record(

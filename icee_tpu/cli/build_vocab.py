@@ -8,9 +8,9 @@ from icee_tpu.data.vocab import build_vocab
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     vocab = build_vocab(path=args.caption_path, threshold=args.threshold)
     with open(args.vocab_path, "wb") as f:
         pickle.dump(vocab, f)

@@ -3,14 +3,13 @@
 Production counterpart of the reference's one-image ``sample.py`` / per-
 request ``app/backend/sample.py:52-97`` flow: caption EVERY image in a
 directory (or a feature cache) in one run, beam-decoding in large fixed
-batches through the shared fast-path chain (``decode/fast.py``: mega
-Pallas kernel on TPU -> per-step fused kernel -> XLA beam), and emit one
-JSON object ``{image: caption}``.
+batches (``decode/fast.py``), and emit one JSON object
+``{image: caption}``.
 
 The reference has no batch-inference tool — captioning N images means N
 process launches, each reloading the checkpoint (``sample.py:37-47``).
 Here the checkpoint loads once, the backbone runs batched, and the decode
-is the bench-grade kernel path.  Serving semantics by default (image
+is the benchmark's batched path.  Serving semantics by default (image
 feature fed at beam step 1, ``app/backend/model.py:414-417``); pass
 ``--research_semantics`` for the ``stylenet/model.py:224-227`` behavior.
 """
@@ -27,14 +26,13 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 def caption_batch(dec_params, head, cfg, vocab, names, provider, mode_idx,
                   batch_size=64, k=5, attention=False, feed_feature=True,
-                  mesh=None, interpret=False):
+                  mesh=None):
     """-> dict image name -> detokenized caption (serving detok contract:
     strip specials, drop trailing ``<unk>``, ``app/backend/sample.py:82-96``).
 
     ``mesh``: a ``("data", "model")`` mesh decodes each batch data-parallel
-    via ``fast.sharded_mega_decode`` (params replicated, images split over
-    the data axis, zero collectives) — linear scaling over ICI for the
-    non-attention families."""
+    via ``fast.sharded_beam_fn`` (params replicated, images split over the
+    data axis, no collectives)."""
     import jax.numpy as jnp
 
     from icee_tpu.decode import fast
@@ -47,40 +45,16 @@ def caption_batch(dec_params, head, cfg, vocab, names, provider, mode_idx,
 
         n_data = mesh.shape[DATA_AXIS]
         batch_size = max(n_data, batch_size - batch_size % n_data)
-    if attention:
-        prep = lambda feats: feats                                # noqa: E731
+    family = "stylenet_att" if attention else "stylenet"
+    kw = dict(batch=batch_size, k=k, max_seq_length=cfg.max_seq_length,
+              vocab_size=cfg.vocab_size, start_token=vocab.start,
+              end_token=vocab.end, feed_feature=feed_feature)
+    if mesh is not None:
+        # data-parallel beam decode: images split over the mesh's data axis
+        # (params replicated, no collectives)
+        beam = fast.sharded_beam_fn(family, dec_params, mesh, **kw)
     else:
-        prep = lambda feats: jnp.tile(feats[:, None, :], (1, k, 1))  # noqa: E731
-
-    def make_candidates():
-        # only the non-mesh branch probes the fallback chain; the mesh path
-        # goes straight to the sharded mega kernel
-        if attention:
-            return fast.attention_candidates(
-                dec_params, style, batch_size, k, cfg.max_seq_length,
-                cfg.vocab_size, vocab.start, vocab.end)
-        return fast.factored_candidates(
-            dec_params, style, batch_size, k, cfg.max_seq_length,
-            cfg.vocab_size, vocab.start, vocab.end, cfg.hidden_size,
-            feed_feature=feed_feature)
-
-    _state = {"fn": None}
-
-    def decode(feats):
-        feats = prep(feats)
-        if mesh is not None:
-            if attention:
-                return fast.sharded_mega_att_decode(
-                    dec_params, feats, style, mesh, batch_size, k=k,
-                    max_seq_length=cfg.max_seq_length, interpret=interpret)
-            return fast.sharded_mega_decode(
-                dec_params, feats, style, mesh, batch_size, k=k,
-                max_seq_length=cfg.max_seq_length,
-                feed_feature=feed_feature, interpret=interpret)
-        if _state["fn"] is None:
-            _, _state["fn"] = fast.pick_first_compiling(
-                make_candidates(), feats)
-        return _state["fn"](feats)
+        beam = fast.beam_fn(family, dec_params, **kw)
 
     out = {}
     for i in range(0, len(names), batch_size):
@@ -96,7 +70,7 @@ def caption_batch(dec_params, head, cfg, vocab, names, provider, mode_idx,
             feats = jnp.concatenate(
                 [feats, jnp.zeros((batch_size - n,) + feats.shape[1:],
                                   feats.dtype)])
-        res = decode(feats)
+        res = beam(feats, style)
         toks = np.asarray(res.tokens)
         lens = np.asarray(res.length)
         for b, name in enumerate(chunk):
@@ -108,9 +82,9 @@ def caption_batch(dec_params, head, cfg, vocab, names, provider, mode_idx,
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     import jax
 
     from icee_tpu.cli import common

@@ -3,9 +3,8 @@
 ``--mode``, print ref/pred pairs, report corpus BLEU-1..4 with cumulative
 weights.
 
-TPU-native difference: the reference decodes one image at a time in Python;
-here the whole test set beam-decodes as jit+vmap batches (the bench.py path,
-hundreds of captions/sec/chip).
+Difference: the reference decodes one image at a time in Python; here the
+whole test set beam-decodes in jitted batches (``decode/fast.py``).
 
 Parity note: like the reference, BLEU here is computed over raw id sequences
 INCLUDING ``<start>``/``<end>`` (``evaluator.py:74-104`` — unlike the
@@ -20,7 +19,7 @@ import numpy as np
 
 def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
              batch_size=64, k=5, print_pairs=True, attention=False,
-             feed_feature=False, mesh=None, interpret=False):
+             feed_feature=False, mesh=None):
     import jax.numpy as jnp
 
     from icee_tpu.models import encoder as enc_mod
@@ -28,56 +27,29 @@ def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
 
     style = jnp.asarray(mode_idx)
 
-    # Decode-path candidate chain (shared with bench.py): the MEGA kernel
-    # (whole beam search in one pallas_call) -> per-step fused kernel ->
-    # pure-XLA beam.  Attention targets the reference evaluator's
-    # DecoderFactoredLSTMAtt (evaluator.py:33-56); the default non-attention
+    # Batched beam decode (decode/fast.py).  Attention targets the
+    # reference evaluator's DecoderFactoredLSTMAtt (evaluator.py:33-56); the
+    # default non-attention
     # path reproduces the research sample() semantics (feature never fed,
     # stylenet/model.py:224-227) unless --feed_feature opts into the
     # serving semantics (app/backend/model.py:414-417).
     from icee_tpu.decode import fast
 
     if mesh is not None:
-        # data-parallel beam decode: images split over the mesh's data axis
-        # (params replicated, zero collectives — sharded_mega_decode /
-        # sharded_mega_att_decode; both families)
         from icee_tpu.parallel.mesh import DATA_AXIS
 
         n_data = mesh.shape[DATA_AXIS]
         batch_size = max(n_data, batch_size - batch_size % n_data)
-    if attention:
-        prep = lambda feats: feats                               # noqa: E731
+    family = "stylenet_att" if attention else "stylenet"
+    kw = dict(batch=batch_size, k=k, max_seq_length=cfg.max_seq_length,
+              vocab_size=cfg.vocab_size, start_token=vocab.start,
+              end_token=vocab.end, feed_feature=feed_feature)
+    if mesh is not None:
+        # data-parallel beam decode: images split over the mesh's data axis
+        # (params replicated, no collectives)
+        beam = fast.sharded_beam_fn(family, dec_params, mesh, **kw)
     else:
-        prep = lambda feats: jnp.tile(feats[:, None, :], (1, k, 1))  # noqa: E731
-
-    def make_candidates():
-        if attention:
-            return fast.attention_candidates(
-                dec_params, style, batch_size, k, cfg.max_seq_length,
-                cfg.vocab_size, vocab.start, vocab.end)
-        return fast.factored_candidates(
-            dec_params, style, batch_size, k, cfg.max_seq_length,
-            cfg.vocab_size, vocab.start, vocab.end, cfg.hidden_size,
-            feed_feature=feed_feature)
-
-    # lazily pick the decode path on the first real batch (its shapes)
-    _state = {"fn": None}
-
-    def decode(feats):
-        feats = prep(feats)
-        if mesh is not None:
-            if attention:
-                return fast.sharded_mega_att_decode(
-                    dec_params, feats, style, mesh, batch_size, k=k,
-                    max_seq_length=cfg.max_seq_length, interpret=interpret)
-            return fast.sharded_mega_decode(
-                dec_params, feats, style, mesh, batch_size, k=k,
-                max_seq_length=cfg.max_seq_length,
-                feed_feature=feed_feature, interpret=interpret)
-        if _state["fn"] is None:
-            _, _state["fn"] = fast.pick_first_compiling(
-                make_candidates(), feats)
-        return _state["fn"](feats)
+        beam = fast.beam_fn(family, dec_params, **kw)
 
     # one beam decode per unique image (evaluator decodes per test line; lines
     # repeat images with different refs — the reference decodes per line, so
@@ -97,7 +69,7 @@ def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
             feats = jnp.concatenate(
                 [feats, jnp.zeros((batch_size - n,) + feats.shape[1:],
                                   feats.dtype)])
-        res = decode(feats)
+        res = beam(feats, style)
         toks = np.asarray(res.tokens)
         lens = np.asarray(res.length)
         for b, ex in enumerate(chunk):
@@ -112,9 +84,9 @@ def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     import jax
 
     from icee_tpu.cli import common

@@ -15,9 +15,9 @@ def _summ(x) -> str:
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     import jax
 
     from icee_tpu.checkpoint.ckpt import load_checkpoint

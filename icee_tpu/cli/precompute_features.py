@@ -1,7 +1,7 @@
 """``python -m icee_tpu.cli.precompute_features`` — encode every unique
 image ONCE into an npz feature cache.
 
-The TPU-native fast path (SURVEY.md §7: the reference recomputes the frozen
+The fast path (SURVEY.md §7: the reference recomputes the frozen
 ResNet-152 on every image every epoch — caching is a free win): this tool
 produces the ``--feature_cache`` file the train/evaluate/validate CLIs
 consume.  Batches images through the jitted backbone on the accelerator.
@@ -17,9 +17,9 @@ import numpy as np
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     import jax
     import jax.numpy as jnp
 
@@ -99,7 +99,8 @@ if __name__ == "__main__":
     parser.add_argument("--grid", type=int, default=14)
     parser.add_argument("--backbone_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="ResNet conv precision (bfloat16 = MXU-native)")
+                        help="ResNet conv precision (bfloat16 convs on "
+                             "the tensor cores)")
     parser.add_argument("--native_decode", action="store_true",
                         help="C++ libjpeg threaded batch feeder (faster; "
                              "classic bilinear resize instead of PIL's "

@@ -1,7 +1,7 @@
 """``python -m icee_tpu.cli.sample`` — single-image captioning CLI
 (reference ``stylenet/sample.py:24-71`` / ``nic/sample.py``).
 
-Loads a vocab + decoder checkpoint (ours via orbax, or a reference torch
+Loads a vocab + decoder checkpoint (ours, or a reference torch
 state_dict via the import shims), encodes the image, beam-decodes in
 ``--mode``, and prints the detokenized caption.
 """
@@ -39,9 +39,9 @@ def caption_image(dec_params, cfg, vocab, feature, mode_idx, k=5,
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     import jax
 
     from icee_tpu.cli import common

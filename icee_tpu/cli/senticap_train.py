@@ -36,9 +36,9 @@ def _tokens(records, sio):
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     from icee_tpu.senticap import io as sio
     from icee_tpu.senticap import train as T
     from icee_tpu.senticap.config import senticap_conf
@@ -51,8 +51,6 @@ def main(args) -> None:
 
     chunked_ce = {"auto": None, "on": True, "off": False}[
         getattr(args, "chunked_ce", "auto")]
-    fused_scan = {"auto": None, "on": True, "off": False}[
-        getattr(args, "fused_scan", "auto")]
 
     mesh = None
     if args.data_parallel:
@@ -71,7 +69,7 @@ def main(args) -> None:
             emb_size=args.emb_size, lstm_hidden_size=args.hidden_size,
             visual_size=args.visual_size, batch_size_val=args.batch_size,
             MAX_SENTENCE_LEN=args.max_len, learning_rate=args.lr,
-            CHUNKED_CE=chunked_ce, FUSED_SCAN=fused_scan)
+            CHUNKED_CE=chunked_ce)
         w2i, i2w = sio.build_vocab(_tokens(records, sio),
                                    min_freq=conf["MIN_WORD_FREQ"])
         ds = sio.make_split(records, features, w2i, max_len=args.max_len,
@@ -95,7 +93,6 @@ def main(args) -> None:
         conf["batch_size_val"] = args.batch_size
         conf["learning_rate"] = args.lr
         conf["CHUNKED_CE"] = chunked_ce
-        conf["FUSED_SCAN"] = fused_scan
         if base_w2i is None:
             raise SystemExit("base model pickle carries no vocabulary; "
                              "retrain it with this CLI")
@@ -202,7 +199,7 @@ if __name__ == "__main__":
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--data_parallel", action="store_true",
                         help="shard minibatches over all devices "
-                             "(params replicated, gradient psum over ICI)")
+                             "(params replicated, gradient all-reduce)")
     parser.add_argument("--device_resident", action="store_true",
                         help="run each epoch as ONE jitted scan over the "
                              "device-resident split (host ships only the "
@@ -212,10 +209,6 @@ if __name__ == "__main__":
                         default="auto",
                         help="chunked (mixture) CE / perplexity — the "
                              "(B,T,V) distributions never materialize; "
-                             "auto = on for the TPU backend")
-    parser.add_argument("--fused_scan", choices=["auto", "on", "off"],
-                        default="auto",
-                        help="whole-scan Pallas recurrence kernel "
-                             "(ops/pallas_senticap_train.py); auto = on "
-                             "for the TPU backend")
+                             "auto = the platform's default "
+                             "(core/backend.py)")
     main(parser.parse_args())

@@ -17,9 +17,9 @@ import argparse
 
 
 def main(args) -> None:
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     import jax
 
     from icee_tpu.cli import common
@@ -73,8 +73,8 @@ def main(args) -> None:
         ds = load_caption_dataset(path, vocab)
         if args.device_resident:
             # whole-epoch device-resident training/validation: the split is
-            # pinned in HBM and each epoch is ONE jitted lax.scan dispatch
-            # (data/device.py — the TPU-native answer to per-batch dispatch
+            # pinned in device memory and each epoch is ONE jitted lax.scan
+            # dispatch (data/device.py — the answer to per-batch dispatch
             # cost; the senticap family's device_dataset analogue).
             from icee_tpu.data import device as device_data
             import numpy as np
@@ -83,13 +83,13 @@ def main(args) -> None:
                 raise SystemExit(f"empty caption set: {path}")
             feat_shape = np.asarray(provider_eval(ds[0].image)).shape
             n_unique = len({e.image for e in ds})
-            budget = int(args.device_budget_gb * (1 << 30))
+            budget = (int(args.device_budget_gb * (1 << 30))
+                      if args.device_budget_gb is not None
+                      else device_data.default_budget_bytes())
             fdt = None
             fdt_bytes = 4
             if args.feature_dtype == "bfloat16":
-                import ml_dtypes
-
-                fdt = ml_dtypes.bfloat16
+                fdt = jax.numpy.bfloat16
                 fdt_bytes = 2
             plan = device_data.pin_plan(n_unique, feat_shape,
                                         budget_bytes=budget,
@@ -112,12 +112,12 @@ def main(args) -> None:
                     seed=args.seed, mesh=mesh,
                     per_batch=(plan == "per_batch"), feature_dtype=fdt)
             if tiered_ok:
-                # HBM-oversized split (e.g. full-Flickr8k spatial features):
+                # oversized split (e.g. full-Flickr8k spatial features):
                 # stream fixed-capacity feature chunks instead of paying the
                 # per-batch host dispatch floor (data/device.py)
                 print(f"NOTE: {path} features exceed the device-resident "
                       "budget; streaming per-chunk feature buffers "
-                      f"({args.device_budget_gb:g} GiB, double-buffered)")
+                      f"({budget / (1 << 30):g} GiB, double-buffered)")
                 return device_data.from_examples_streamed(
                     ds, batch_size=bs, max_len=tcfg.max_caption_len,
                     image_provider=provider_eval, shuffle=train,
@@ -279,24 +279,22 @@ if __name__ == "__main__":
                              "wall (the epoch programs cast each gathered "
                              "batch back to f32 — the only numerical "
                              "difference is the one-time storage rounding, "
-                             "and TPU default f32 matmul precision rounds "
-                             "operands to bf16 anyway)")
-    parser.add_argument("--device_budget_gb", type=float, default=4.0,
-                        help="HBM feature budget for --device_resident "
+                             "and the GPU's default f32 matmul precision "
+                             "(TF32) rounds operands anyway)")
+    parser.add_argument("--device_budget_gb", type=float, default=None,
+                        help="device feature budget for --device_resident "
                              "(pin if the split fits; otherwise stream "
                              "double-buffered chunks of a third this size "
                              "— the epoch scan holds one extra copy of "
-                             "the active buffer). "
-                             "Keep <= ~40%% of free HBM: the one-dispatch "
-                             "epoch program makes one XLA copy of the "
-                             "pinned feature array, so pinning needs ~2x "
-                             "the feature bytes (measured: a 8.97 GiB "
-                             "spatial split needs 23.1 GiB and OOMs a "
-                             "16 GiB chip)")
+                             "the active buffer); pinning budgets 2x the "
+                             "feature bytes for the epoch program's copy. "
+                             "Default: a quarter of the GPU memory the "
+                             "process reserved, 4 GiB elsewhere "
+                             "(data/device.py:default_budget_bytes)")
     parser.add_argument("--data_parallel", action="store_true",
                         help="train over all devices: ('data','model') mesh, "
                              "batch sharded over the data axis, gradient "
-                             "psum over ICI (SURVEY §2.5)")
+                             "all-reduce (SURVEY §2.5)")
     parser.add_argument("--tensor_parallel", type=int, default=1,
                         help="model-axis size for vocab-dim tensor "
                              "parallelism of the embedding/output head "

@@ -133,21 +133,11 @@ class TrainConfig:
     # crop/resize sizes (train_multitask.py:63-69)
     resize_size: int = 336
     crop_size: int = 224
-    # Use the Pallas fused time-scan kernels for the training forward:
-    # ops/pallas_lstm.py for the non-attention FactoredLSTM chain
-    # (teacher-forced path only) and ops/pallas_att_train.py for the
-    # attention families (both the teacher-forced and the scheduled-
-    # sampling tf<1 paths — the sampled variant runs the head/argmax
-    # feedback in-kernel).  None (default) = auto: on for the TPU backend
-    # (measured wins vs the XLA scan, see docs/KERNELS.md §4), off
-    # elsewhere (the kernels would run in slow interpret mode on CPU).
-    fused_scan: Optional[bool] = None
     # Compute the training CE in time chunks directly from the decoder's
     # hidden states (ops/chunked_loss.py) — the (B, T, V) logits never
-    # materialize in HBM.  Numerically equal to the materialized loss
-    # (grads to <=2e-7); None (default) = auto: on for the TPU backend
-    # (measured 10.5 vs 47.3 ms fwd+bwd at B=512/T=25/V=8192), off
-    # elsewhere to keep CPU test baselines bitwise-stable.
+    # materialize in device memory.  Numerically equal to the materialized
+    # loss (grads to <=2e-7); None (default) = the backend's choice
+    # (core/backend.py).
     chunked_ce: Optional[bool] = None
     # Mid-epoch preemption safety for device-resident training (beyond the
     # reference, whose host loop can only resume at epoch boundaries,

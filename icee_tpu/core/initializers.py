@@ -9,7 +9,7 @@ used without an explicit reset, e.g. the encoder head and seq2seq models) use
 torch's default ``U(-1/sqrt(fan), 1/sqrt(fan))``.
 
 Weight layout convention: we store every linear weight as ``(in, out)`` so the
-forward pass is ``x @ W + b`` (row-major, MXU-friendly).  Xavier-uniform is
+forward pass is ``x @ W + b`` (row-major, matmul-friendly).  Xavier-uniform is
 symmetric in fan-in/fan-out so the distribution is identical to torch's
 ``(out, in)`` layout; torch default init bounds use ``fan_in = in`` which we
 preserve explicitly.

@@ -1,6 +1,6 @@
 """Host input pipeline: fixed-shape masked batches with prefetch.
 
-TPU-first replacement for the reference's ``DataLoader`` + ``collate_fn``
+Replacement for the reference's ``DataLoader`` + ``collate_fn``
 stack (``stylenet/data_loader.py:116-197``): instead of sorting each batch by
 length and packing (a CUDA-era trick for ``pack_padded_sequence``), every
 batch is padded to a *static* ``(batch_size, max_len)`` shape with explicit

@@ -5,7 +5,7 @@ The reference composes torchvision transforms on the host per image
 RandomHorizontalFlip -> ToTensor -> ImageNet Normalize; eval/serving path is
 Resize(224) -> ToTensor -> Normalize, ``sample.py:26-30``).
 
-TPU-first split: the host decodes + resizes to a fixed size (PIL, matching
+Split: the host decodes + resizes to a fixed size (PIL, matching
 torchvision's bilinear resize), and the *random* crop/flip plus normalize run
 as one jitted batched op on device — per-image PRNG, NHWC layout, fused with
 the encoder forward by XLA.
@@ -14,7 +14,7 @@ the encoder forward by XLA.
 from __future__ import annotations
 
 from functools import partial
-from typing import Tuple
+from typing import Callable, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +36,24 @@ def host_decode_resize(path_or_img, size: int) -> np.ndarray:
         img = Image.open(img)
     img = img.convert("RGB").resize((size, size), Image.BILINEAR)
     return np.asarray(img, dtype=np.uint8)
+
+
+def pick_image_decoder(size: int) -> Callable[[str], np.ndarray]:
+    """The host JPEG decoder for uploads, chosen once: PIL if installed,
+    else the libjpeg decoder built from ``native/imagedec.cpp``.  Either
+    returns a ``(size, size, 3)`` uint8 array, the device path's input.
+    Raises ``RuntimeError`` naming both when neither is available."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        from icee_tpu.native import imagedec
+
+        if not imagedec.native_available():
+            raise RuntimeError(
+                "no JPEG decoder: install Pillow, or provide g++ and libjpeg "
+                "so icee_tpu/native/imagedec.cpp can be built") from None
+        return lambda path: imagedec.decode_resize_paths([path], size)[0]
+    return lambda path: host_decode_resize(path, size)
 
 
 def normalize(images: jax.Array) -> jax.Array:

@@ -77,7 +77,6 @@ def beam_search(
     max_seq_length: int,
     vocab_size: int,
     first_input: Optional[jax.Array] = None,
-    step_topk_fn: Optional[Callable] = None,
 ) -> BeamResult:
     """Run the reference beam search for ONE image (vmap for batches).
 
@@ -85,13 +84,6 @@ def beam_search(
     step over ``k`` beam slots.  ``init_model_state`` leaves must have leading
     dim ``k``.  ``first_input``: optional (k, E) step-1 input (image feature,
     serving semantics).
-
-    ``step_topk_fn(x, model_state) -> (logp_top (k, k), idx_top (k, k),
-    model_state)``: fused fast path (e.g. the Pallas kernel in
-    ``icee_tpu.ops.pallas_decode``) returning each row's top-k log-softmax
-    values + vocab ids instead of full logits.  Exactly equivalent: the
-    flat top-k of ``scores + logp`` over (k, V) only ever selects from each
-    row's top-k (adding a row constant preserves per-row order).
     """
     max_len = max_seq_length + 2  # <start> + max_seq_length emissions + slack
     seqs0 = jnp.full((k, max_len), end_token, jnp.int32)
@@ -126,21 +118,13 @@ def beam_search(
             x = x_emb
         # dead rows never compete; at step 1 only row 0 competes (model.py:239)
         row_ok = jnp.where(is_first, rank == 0, s.alive)
-        if step_topk_fn is None:
-            logits, model_state = step_fn(x, s.model_state)
-            logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
-            total = s.scores[:, None] + logp  # (k, V)
-            total = jnp.where(row_ok[:, None], total, NEG_INF)
-            top_scores, top_idx = jax.lax.top_k(total.reshape(-1), k)
-            prev_idx = top_idx // vocab_size
-            words = top_idx % vocab_size
-        else:
-            logp_top, idx_top, model_state = step_topk_fn(x, s.model_state)
-            total = s.scores[:, None] + logp_top  # (k, k)
-            total = jnp.where(row_ok[:, None], total, NEG_INF)
-            top_scores, pos = jax.lax.top_k(total.reshape(-1), k)
-            prev_idx = pos // k
-            words = idx_top.reshape(-1)[pos]
+        logits, model_state = step_fn(x, s.model_state)
+        logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
+        total = s.scores[:, None] + logp  # (k, V)
+        total = jnp.where(row_ok[:, None], total, NEG_INF)
+        top_scores, top_idx = jax.lax.top_k(total.reshape(-1), k)
+        prev_idx = top_idx // vocab_size
+        words = top_idx % vocab_size
 
         # the reference materializes only the top-n_alive candidates
         # (top-k at step 1); rank == sorted position
@@ -193,7 +177,7 @@ def beam_search(
 
 def beam_search_batched(
     embed_fn: Callable[[jax.Array], jax.Array],
-    step_fn: Optional[Callable],
+    step_fn: Callable,
     init_model_state,
     start_token: int,
     end_token: int,
@@ -202,14 +186,12 @@ def beam_search_batched(
     vocab_size: int,
     batch: int,
     first_input: Optional[jax.Array] = None,
-    step_topk_fn: Optional[Callable] = None,
 ) -> BeamResult:
     """Natively batched beam search over ``batch`` images at once.
 
     Semantically identical to ``vmap(beam_search)`` (tested), but the model
-    step runs on one flat ``(batch*k, ...)`` row block — the layout the
-    Pallas fused step kernel (``ops/pallas_decode.py``) needs for full MXU
-    tiles; vmap-ing a pallas_call would instead run per-image 5-row calls.
+    step runs on one flat ``(batch*k, ...)`` row block: one large head
+    matmul per step instead of per-image 5-row ones.
 
     ``init_model_state`` leaves are flat rows ``(batch*k, ...)``;
     ``first_input`` is ``(batch, k, E)``.  Returns BeamResult with a leading
@@ -217,7 +199,7 @@ def beam_search_batched(
     """
     max_len = max_seq_length + 2
     rows = batch * k
-    width = k if step_topk_fn is not None else vocab_size
+    width = vocab_size
 
     seqs0 = jnp.full((batch, k, max_len), end_token, jnp.int32)
     seqs0 = seqs0.at[:, :, 0].set(start_token)
@@ -250,25 +232,15 @@ def beam_search_batched(
             x = x_emb
 
         row_ok = jnp.where(is_first, rank == 0, s.alive)  # (batch, k)
-        if step_topk_fn is None:
-            logits, model_state = step_fn(x, s.model_state)
-            logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
-            total = s.scores.reshape(rows, 1) + logp
-            cand_words = None
-        else:
-            logp_top, idx_top, model_state = step_topk_fn(x, s.model_state)
-            total = s.scores.reshape(rows, 1) + logp_top     # (rows, k)
-            cand_words = idx_top                             # (rows, k)
+        logits, model_state = step_fn(x, s.model_state)
+        logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
+        total = s.scores.reshape(rows, 1) + logp
         total = total.reshape(batch, k, width)
         total = jnp.where(row_ok[:, :, None], total, NEG_INF)
 
         top_scores, idx = jax.lax.top_k(total.reshape(batch, k * width), k)
         prev_idx = idx // width                              # (batch, k)
-        if cand_words is None:
-            words = idx % width
-        else:
-            words = jnp.take_along_axis(
-                cand_words.reshape(batch, k * width), idx, axis=1)
+        words = idx % width
 
         n_take = jnp.where(is_first, k, jnp.sum(s.alive, axis=1, keepdims=True))
         valid = rank < n_take                                # (batch, k)

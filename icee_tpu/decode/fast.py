@@ -1,404 +1,131 @@
-"""Fast decode-path selection: mega kernel -> per-step fused -> pure XLA.
+"""Batched beam decode for the four caption families, on one device or many.
 
-One place for the candidate chain that ``bench.py``, ``cli/evaluate.py`` and
-servers use: each candidate is a jitted ``feats -> BeamResult`` function;
-:func:`pick_first_compiling` probes them in order on the first real batch
-(the Pallas kernels compile on TPU; elsewhere they raise and the XLA beam
-takes over).  All candidates are token-equivalent — proved in
-``tests/test_pallas_beam.py`` / ``tests/test_pallas_att.py`` and bit-checked
-on hardware.
+One place builds the jitted ``(feats, style) -> BeamResult`` function that
+``serve/batching.py``, ``cli/evaluate.py``, ``cli/caption_batch.py`` and the
+benchmark use.  Every step is plain XLA: each family's own ``decode_step``
+(recurrence + vocabulary head), then ``log_softmax`` and ``top_k`` inside
+``beam_search_batched``.  A fused head + top-k kernel lost its end-to-end
+A/B on the H100 and was removed (docs/KERNELS.md).
+
+Feature layout: the global families (``stylenet``, ``nic``) take pooled
+encoder features ``(batch, E)`` fed at step 1 (serving semantics; the
+research semantics of ``feed_feature=False`` ignore them), the attention
+families take spatial features ``(batch, P, FS)``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable
+
+FAMILIES = ("stylenet", "nic", "stylenet_att", "nic_att")
 
 
-def factored_candidates(
+def beam_fn(
+    family: str,
     dec_params: dict,
-    style,
     batch: int,
     k: int,
     max_seq_length: int,
     vocab_size: int,
     start_token: int,
     end_token: int,
-    hidden_size: int,
     feed_feature: bool = True,
-    n_img_block: int = 64,
-    n_streams: int = 2,
-    v_tile: int = 2048,
-) -> List[Tuple[str, Callable]]:
-    """Candidates for the (non-attention) FactoredLSTM beam.
-
-    Each fn takes ``feats`` of shape (batch, k, E) — ignored when
-    ``feed_feature`` is False (research semantics) — and returns a
-    :class:`BeamResult` with a leading batch dim.
+    jit: bool = True,
+) -> Callable:
+    """Jitted ``(feats, style) -> BeamResult`` (leading batch dim) for
+    ``family``.  ``style`` is a traced style id (ignored by the NIC
+    families), so one compiled program serves every mode.  ``jit=False``
+    returns the traceable function (for ``shard_map``).
     """
     import jax
     import jax.numpy as jnp
 
     from icee_tpu.decode.beam import beam_search_batched
+    from icee_tpu.models import attention as att_mod
     from icee_tpu.models import factored_lstm as fl
-
-    def run_mega(feats):
-        from icee_tpu.ops.pallas_beam import mega_beam_decode
-
-        return mega_beam_decode(
-            dec_params, feats if feed_feature else None, style, batch,
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length, n_img_block=n_img_block,
-            v_tile=v_tile, n_streams=n_streams, feed_feature=feed_feature)
-
-    def run_beam(feats, fused):
-        def topk_step(x, state):
-            from icee_tpu.ops.pallas_decode import fused_decode_step_topk
-
-            h, c = state
-            vals, idx, h2, c2 = fused_decode_step_topk(
-                dec_params, x, h, c, style, ktop=k, row_block=256,
-                v_tile=v_tile)
-            return vals, idx, (h2, c2)
-
-        zeros = jnp.zeros((batch * k, hidden_size),
-                          dec_params["C_w"].dtype)
-        return beam_search_batched(
-            embed_fn=lambda t: fl.embed(dec_params, t),
-            step_fn=(None if fused else
-                     (lambda x, s: fl.decode_step(dec_params, x, s, style))),
-            init_model_state=(zeros, zeros),
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length, vocab_size=vocab_size,
-            batch=batch, first_input=feats if feed_feature else None,
-            step_topk_fn=topk_step if fused else None)
-
-    return [
-        ("mega", jax.jit(run_mega)),
-        ("fused-step", jax.jit(lambda ft: run_beam(ft, True))),
-        ("xla", jax.jit(lambda ft: run_beam(ft, False))),
-    ]
-
-
-def nic_candidates(
-    dec_params: dict,
-    batch: int,
-    k: int,
-    max_seq_length: int,
-    vocab_size: int,
-    start_token: int,
-    end_token: int,
-    hidden_size: int,
-    n_img_block: int = 64,
-    n_streams: int = 2,
-    v_tile: int = 2048,
-) -> List[Tuple[str, Callable]]:
-    """Candidates for the NIC (torch-LSTM) beam: mega kernel with
-    ``cell="lstm"`` -> pure-XLA beam.  Fns take feats (batch, k, E)."""
-    import jax
-    import jax.numpy as jnp
-
-    from icee_tpu.decode.beam import beam_search_batched
     from icee_tpu.models import lstm as nic
 
-    def run_mega(feats):
-        from icee_tpu.ops.pallas_beam import mega_beam_decode
+    if family not in FAMILIES:
+        raise ValueError(f"unknown decoder family {family!r}; "
+                         f"want one of {FAMILIES}")
+    factored = family.startswith("stylenet")
+    hidden = (dec_params["C_w"] if factored else dec_params["linear_w"])
 
-        return mega_beam_decode(
-            dec_params, feats, jnp.asarray(0), batch,
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length, n_img_block=n_img_block,
-            v_tile=v_tile, n_streams=n_streams, cell="lstm")
+    def embed(t):
+        return (fl.embed(dec_params, t) if factored
+                else jnp.take(dec_params["embed"], t, axis=0))
 
-    def run_xla(feats):
-        zeros = jnp.zeros((batch * k, hidden_size),
-                          dec_params["linear_w"].dtype)
-        return beam_search_batched(
-            embed_fn=lambda t: nic.embed(dec_params, t),
-            step_fn=lambda x, s: nic.decode_step(dec_params, x, s),
-            init_model_state=(zeros, zeros),
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length, vocab_size=vocab_size,
-            batch=batch, first_input=feats)
-
-    return [("mega", jax.jit(run_mega)), ("xla", jax.jit(run_xla))]
-
-
-def attention_candidates(
-    dec_params: dict,
-    style,
-    batch: int,
-    k: int,
-    max_seq_length: int,
-    vocab_size: int,
-    start_token: int,
-    end_token: int,
-    n_img_block: int = 24,
-    v_tile: int = 2048,
-) -> List[Tuple[str, Callable]]:
-    """Candidates for the StyleNet+Att beam: fns take spatial features
-    (batch, P, FS) and return a :class:`BeamResult`."""
-    import jax
-    import jax.numpy as jnp
-
-    from icee_tpu.decode.beam import beam_search_batched
-    from icee_tpu.models import attention as att_mod
-    from icee_tpu.models import factored_lstm as fl
-
-    att = att_mod._select_attention(dec_params["attention"], style)
-    cell = {k_: dec_params[k_] for k_ in
-            ("V_w", "V_b", "U_w", "U_b", "W_w", "W_b", "C_w", "C_b")}
-    cell["S_w"] = jnp.take(dec_params["S_w"], style, axis=0)
-    cell["S_b"] = jnp.take(dec_params["S_b"], style, axis=0)
-    gate = {"f_beta_w": dec_params["f_beta_w"],
-            "f_beta_b": dec_params["f_beta_b"]}
-
-    def run_mega(spatial):
-        from icee_tpu.ops.pallas_att_decode import mega_att_beam_decode
-
-        return mega_att_beam_decode(
-            dec_params, spatial, style, batch, start_token=start_token,
-            end_token=end_token, k=k, max_seq_length=max_seq_length,
-            n_img_block=n_img_block, v_tile=v_tile)
-
-    def run_beam(spatial, fused):
-        att1 = spatial @ att["enc_w"] + att["enc_b"]
-        feats_k = jnp.repeat(spatial, k, axis=0)
-        att1_k = jnp.repeat(att1, k, axis=0)
-
-        def topk_step(x, s):
-            from icee_tpu.ops.pallas_att_decode import (
-                fused_att_decode_step_topk,
-            )
-
-            h, c = s
-            v, i, h2, c2, _ = fused_att_decode_step_topk(
-                cell, att, gate, x, h, c, spatial, att1, kind="factored",
-                k=k, ktop=k, n_img_block=n_img_block, v_tile=v_tile)
-            return v, i, (h2, c2)
-
-        def xla_step(x, s):
-            logits, _, s2 = att_mod.factored_att_decode_step(
-                dec_params, x, feats_k, s, style, att1=att1_k)
-            return logits, s2
+    def run(feats, style):
+        style = jnp.asarray(style)
+        rows = batch * k
+        first = None
+        if family.endswith("_att"):
+            att = (att_mod._select_attention(dec_params["attention"], style)
+                   if factored else dec_params["attention"])
+            # the encoder projection is h-independent: once per image, not
+            # once per beam row and step
+            att1_k = jnp.repeat(feats @ att["enc_w"] + att["enc_b"], k,
+                                axis=0)
+            feats_k = jnp.repeat(feats, k, axis=0)
+            init = att_mod.init_hidden_state(dec_params, feats_k)
+            if factored:
+                def step(x, s):
+                    logits, _, s2 = att_mod.factored_att_decode_step(
+                        dec_params, x, feats_k, s, style, att1=att1_k)
+                    return logits, s2
+            else:
+                def step(x, s):
+                    logits, _, s2 = att_mod.rnn_att_decode_step(
+                        dec_params, x, feats_k, s, att1=att1_k)
+                    return logits, s2
+        else:
+            zeros = jnp.zeros((rows, hidden.shape[0]), hidden.dtype)
+            init = (zeros, zeros)
+            if factored:
+                def step(x, s):
+                    return fl.decode_step(dec_params, x, s, style)
+            else:
+                def step(x, s):
+                    return nic.decode_step(dec_params, x, s)
+            if feed_feature:
+                first = jnp.repeat(feats[:, None, :], k, axis=1)
 
         return beam_search_batched(
-            embed_fn=lambda t: fl.embed(dec_params, t),
-            step_fn=None if fused else xla_step,
-            init_model_state=att_mod.init_hidden_state(dec_params, feats_k),
+            embed_fn=embed, step_fn=step, init_model_state=init,
             start_token=start_token, end_token=end_token, k=k,
             max_seq_length=max_seq_length, vocab_size=vocab_size,
-            batch=batch, step_topk_fn=topk_step if fused else None)
+            batch=batch, first_input=first)
 
-    return [
-        ("mega", jax.jit(run_mega)),
-        ("fused-step", jax.jit(lambda ft: run_beam(ft, True))),
-        ("xla", jax.jit(lambda ft: run_beam(ft, False))),
-    ]
+    return jax.jit(run) if jit else run
 
 
-def nic_att_candidates(
-    dec_params: dict,
-    batch: int,
-    k: int,
-    max_seq_length: int,
-    vocab_size: int,
-    start_token: int,
-    end_token: int,
-    n_img_block: int = 24,
-    v_tile: int = 2048,
-) -> List[Tuple[str, Callable]]:
-    """Candidates for the NIC+Att beam: attention mega kernel with
-    ``kind="lstm"`` -> per-step fused -> XLA.  Fns take (batch, P, FS)."""
-    import jax
-    import jax.numpy as jnp
+def sharded_beam_fn(family: str, dec_params: dict, mesh, batch: int,
+                    **kw) -> Callable:
+    """Data-parallel :func:`beam_fn` over ``mesh``'s data axis.
 
-    from icee_tpu.decode.beam import beam_search_batched
-    from icee_tpu.models import attention as att_mod
-
-    att = dec_params["attention"]
-    cell = dict(dec_params["cell"])
-    cell["C_w"] = dec_params["linear_w"]
-    cell["C_b"] = dec_params["linear_b"]
-    gate = {"f_beta_w": dec_params["f_beta_w"],
-            "f_beta_b": dec_params["f_beta_b"]}
-
-    def run_mega(spatial):
-        from icee_tpu.ops.pallas_att_decode import mega_att_beam_decode
-
-        return mega_att_beam_decode(
-            dec_params, spatial, jnp.asarray(0), batch,
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length, n_img_block=n_img_block,
-            v_tile=v_tile, kind="lstm")
-
-    def run_beam(spatial, fused):
-        att1 = spatial @ att["enc_w"] + att["enc_b"]
-        feats_k = jnp.repeat(spatial, k, axis=0)
-        att1_k = jnp.repeat(att1, k, axis=0)
-
-        def topk_step(x, s):
-            from icee_tpu.ops.pallas_att_decode import (
-                fused_att_decode_step_topk,
-            )
-
-            h, c = s
-            v, i, h2, c2, _ = fused_att_decode_step_topk(
-                cell, att, gate, x, h, c, spatial, att1, kind="lstm",
-                k=k, ktop=k, n_img_block=n_img_block, v_tile=v_tile)
-            return v, i, (h2, c2)
-
-        def xla_step(x, s):
-            logits, _, s2 = att_mod.rnn_att_decode_step(
-                dec_params, x, feats_k, s, att1=att1_k)
-            return logits, s2
-
-        return beam_search_batched(
-            embed_fn=lambda t: jnp.take(dec_params["embed"], t, axis=0),
-            step_fn=None if fused else xla_step,
-            init_model_state=att_mod.init_hidden_state(dec_params, feats_k),
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length, vocab_size=vocab_size,
-            batch=batch, step_topk_fn=topk_step if fused else None)
-
-    return [
-        ("mega", jax.jit(run_mega)),
-        ("fused-step", jax.jit(lambda ft: run_beam(ft, True))),
-        ("xla", jax.jit(lambda ft: run_beam(ft, False))),
-    ]
-
-
-def pick_first_compiling(candidates, probe) -> Tuple[str, Callable]:
-    """Compile+run each candidate on ``probe`` until one succeeds."""
-    import jax
-
-    last: Optional[Exception] = None
-    for name, fn in candidates:
-        try:
-            jax.block_until_ready(fn(probe).tokens)
-            return name, fn
-        except Exception as e:  # noqa: BLE001 - fall through the chain
-            last = e
-    raise RuntimeError(f"no decode path compiled: {last!r}")
-
-
-def sharded_mega_decode(
-    dec_params: dict,
-    features,                 # (B, k, E) global batch
-    style,
-    mesh,
-    batch: int,
-    k: int = 5,
-    max_seq_length: int = 40,
-    start_token: int = 1,
-    end_token: int = 2,
-    n_img_block: int = 64,
-    n_streams: int = 2,
-    v_tile: int = 2048,
-    feed_feature: bool = True,
-    interpret: bool = False,
-):
-    """Data-parallel mega-kernel decode over a device mesh.
-
-    Each device runs the mega beam kernel on its shard of the image batch
-    (params replicated, batch split over the ``"data"`` axis with
-    ``shard_map``) — beam decode is embarrassingly parallel over images, so
-    scaling is linear over ICI with zero collectives.  Token-identical to
-    the single-device kernel (tested on the 8-device virtual CPU mesh).
+    Beam decode is independent per image, so each device decodes its shard
+    of the batch with replicated parameters and no collectives; tokens are
+    identical to the one-device decode.  ``kw`` as for :func:`beam_fn`.
     """
     import jax
     from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from icee_tpu.parallel.mesh import DATA_AXIS
-
-    n_data = mesh.shape[DATA_AXIS]
-    assert batch % n_data == 0, (batch, n_data)
-    local = batch // n_data
-    # Pallas only compiles on TPU; a CPU (virtual) mesh runs interpret mode
-    interpret = interpret or jax.default_backend() != "tpu"
-
-    def per_device(feats_shard):
-        from icee_tpu.ops.pallas_beam import mega_beam_decode
-
-        return mega_beam_decode(
-            dec_params, feats_shard, style, local,
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length,
-            n_img_block=min(n_img_block, local), v_tile=v_tile,
-            n_streams=n_streams, feed_feature=feed_feature,
-            interpret=interpret)
-
-    spec = P(DATA_AXIS)
-    fn = shard_map(
-        per_device, mesh=mesh,
-        in_specs=(spec,),
-        out_specs=jax.tree_util.tree_map(lambda _: spec, _beam_result_tree()),
-        check_vma=False)
-    feats = jax.device_put(
-        features, NamedSharding(mesh, P(DATA_AXIS, None, None)))
-    return jax.jit(fn)(feats)
-
-
-def _beam_result_tree():
     from icee_tpu.decode.beam import BeamResult
-
-    return BeamResult(tokens=0, length=0, score=0)
-
-
-def sharded_mega_att_decode(
-    dec_params: dict,
-    features,                 # (B, P, FS) global spatial-feature batch
-    style,
-    mesh,
-    batch: int,
-    k: int = 5,
-    max_seq_length: int = 40,
-    start_token: int = 1,
-    end_token: int = 2,
-    n_img_block: int = 24,
-    v_tile: int = 2048,
-    kind: str = "factored",
-    interpret: bool = False,
-):
-    """Data-parallel ATTENTION mega-kernel decode over a device mesh.
-
-    The attention-family counterpart of :func:`sharded_mega_decode`
-    (VERDICT r2 #3): each device runs ``mega_att_beam_decode`` on its shard
-    of the spatial-feature batch — params replicated, batch split over the
-    ``"data"`` axis, zero collectives.  Serves both attention families
-    (``kind="factored"`` StyleNet+Att, ``kind="lstm"`` NIC+Att) and is
-    token-identical to the single-device kernel (tested on the 8-device
-    virtual CPU mesh).  Reference eval being scaled:
-    ``stylenet/evaluator.py:59-120`` over ``model_att.py:307-426``.
-    """
-    import jax
-    from jax import shard_map
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
     from icee_tpu.parallel.mesh import DATA_AXIS
 
     n_data = mesh.shape[DATA_AXIS]
-    assert batch % n_data == 0, (batch, n_data)
-    local = batch // n_data
-    # Pallas only compiles on TPU; a CPU (virtual) mesh runs interpret mode
-    interpret = interpret or jax.default_backend() != "tpu"
-
-    def per_device(feats_shard):
-        from icee_tpu.ops.pallas_att_decode import mega_att_beam_decode
-
-        return mega_att_beam_decode(
-            dec_params, feats_shard, style, local,
-            start_token=start_token, end_token=end_token, k=k,
-            max_seq_length=max_seq_length,
-            n_img_block=min(n_img_block, local), v_tile=v_tile,
-            kind=kind, interpret=interpret)
-
+    if batch % n_data:
+        raise ValueError(f"batch {batch} does not split over {n_data} "
+                         "data shards")
+    local = beam_fn(family, dec_params, batch // n_data, jit=False, **kw)
     spec = P(DATA_AXIS)
-    fn = shard_map(
-        per_device, mesh=mesh,
-        in_specs=(spec,),
-        out_specs=jax.tree_util.tree_map(lambda _: spec, _beam_result_tree()),
-        check_vma=False)
-    feats = jax.device_put(
-        features, NamedSharding(mesh, P(DATA_AXIS, None, None)))
-    return jax.jit(fn)(feats)
+    fn = jax.jit(shard_map(
+        local, mesh=mesh, in_specs=(spec, P()),
+        out_specs=BeamResult(tokens=spec, length=spec, score=spec),
+        check_vma=False))
+
+    def run(feats, style):
+        return fn(jax.device_put(feats, NamedSharding(mesh, spec)), style)
+
+    return run

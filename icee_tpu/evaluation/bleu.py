@@ -15,7 +15,7 @@ standalone implementation of the same micro-averaged algorithm:
 
 Golden-tested against the installed NLTK in ``tests/test_bleu.py``.
 This is host-side Python over token lists (tiny corpora); the heavy part of
-evaluation — batched beam decode — runs on the TPU.
+evaluation — batched beam decode — runs on the accelerator.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Attention decoders (StyleNet+Att and NIC+Att), TPU-native.
+"""Attention decoders (StyleNet+Att and NIC+Att) in JAX.
 
 Parity targets: ``Attention`` and ``DecoderFactoredLSTMAtt``
 (``stylenet/model_att.py:32-426``, SURVEY.md M5) and ``DecoderRNNAtt``
@@ -29,50 +29,6 @@ import jax.numpy as jnp
 from icee_tpu.core.config import AttentionDecoderConfig
 from icee_tpu.core import initializers as init
 from icee_tpu.ops.cells import factored_lstm_cell, lstm_cell
-
-
-def _data_shards(mesh):
-    from icee_tpu.parallel.mesh import data_shards
-
-    return data_shards(mesh)
-
-
-def _maybe_shard_map(fn, mesh, in_batched):
-    """Wrap a fused-kernel call in ``shard_map`` over the data axis when
-    running under a >1-way data mesh (``parallel.mesh.kernel_shard_map``);
-    identity otherwise."""
-    if _data_shards(mesh) <= 1:
-        return fn
-    from icee_tpu.parallel.mesh import kernel_shard_map
-
-    return kernel_shard_map(fn, mesh, in_batched)
-
-
-def _factored_kernel_params(params, att, style, e):
-    """Repack the factored decoder + attention params into the fused
-    kernel's layout (ONE place — four call sites consume it)."""
-    cell = {"V_we": params["V_w"][:e], "V_wc": params["V_w"][e:],
-            "V_b": params["V_b"],
-            "S_w": jnp.take(params["S_w"], style, axis=0),
-            "S_b": jnp.take(params["S_b"], style, axis=0),
-            "U_w": params["U_w"], "U_b": params["U_b"],
-            "W_w": params["W_w"], "W_b": params["W_b"]}
-    katt = {"dec_w": att["dec_w"], "dec_b": att["dec_b"],
-            "full_w": att["full_w"], "full_b": att["full_b"],
-            "fb_w": params["f_beta_w"], "fb_b": params["f_beta_b"]}
-    return cell, katt
-
-
-def _lstm_kernel_params(params, att, e):
-    cell = {"W_ihe": params["cell"]["W_ih"][:e],
-            "W_ihc": params["cell"]["W_ih"][e:],
-            "W_hh": params["cell"]["W_hh"],
-            "b_ih": params["cell"]["b_ih"],
-            "b_hh": params["cell"]["b_hh"]}
-    katt = {"dec_w": att["dec_w"], "dec_b": att["dec_b"],
-            "full_w": att["full_w"], "full_b": att["full_b"],
-            "fb_w": params["f_beta_w"], "fb_b": params["f_beta_b"]}
-    return cell, katt
 
 
 State = Tuple[jax.Array, jax.Array]
@@ -256,18 +212,11 @@ def factored_att_forward_hiddens(
     teacher_forcing_ratio: float = 0.8,
     rng: Optional[jax.Array] = None,
     train: bool = True,
-    fused_scan: bool = False,
-    mesh=None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Training forward -> (hiddens (B,T,H), alphas (B,T,P)); the vocab head
     is left to the caller (chunked loss, ``ops/chunked_loss.py``).  On the
     scheduled-sampling path the head runs per step only to pick the argmax
-    feedback token (no gradient; never stacked).
-
-    ``fused_scan=True`` routes the fully teacher-forced branch through the
-    Pallas whole-scan kernel (``ops/pallas_att_train.py``) that keeps the
-    (B, P, ·) feature/projection tiles VMEM-resident across the time loop
-    (requires batch divisible by 8; falls back to the XLA scan otherwise)."""
+    feedback token (no gradient; never stacked)."""
     from icee_tpu.models.factored_lstm import embed, output_logits
 
     b, t = captions.shape
@@ -287,21 +236,6 @@ def factored_att_forward_hiddens(
 
     if (isinstance(teacher_forcing_ratio, float)
             and teacher_forcing_ratio >= 1.0):
-        b_eff = b // _data_shards(mesh)
-        if fused_scan and b_eff % 8 == 0:
-            from icee_tpu.ops.pallas_att_train import fused_att_scan
-
-            from icee_tpu.ops.pallas_att_train import teacher_tiles
-
-            cell, katt = _factored_kernel_params(params, att, style,
-                                                  cfg.embed_size)
-            tiles = teacher_tiles(b_eff)
-            fn = lambda cl, at, es, a1, fe, h, c: fused_att_scan(  # noqa: E731
-                cl, at, es, a1, fe, h, c, "factored", tiles)
-            fn = _maybe_shard_map(fn, mesh, (False, False, True, True,
-                                             True, True, True))
-            return fn(cell, katt, emb_seq, att1, features, h0, c0)
-
         def tf_body(carry, emb_teacher):
             h, c = carry
             context, alpha = _gated_context_pre(params, att, att1, features, h)
@@ -314,27 +248,6 @@ def factored_att_forward_hiddens(
         return jnp.swapaxes(hiddens, 0, 1), jnp.swapaxes(alphas, 0, 1)
 
     coins = jax.random.bernoulli(k_tf, teacher_forcing_ratio, (t,))
-
-    b_eff = b // _data_shards(mesh)
-    if fused_scan and b_eff % 8 == 0:
-        from icee_tpu.ops.pallas_att_train import fused_att_scan_sampled
-
-        cell, katt = _factored_kernel_params(params, att, style,
-                                              cfg.embed_size)
-        from icee_tpu.ops.pallas_att_train import sampled_tiles
-
-        head = {"C_w": params["C_w"], "C_b": params["C_b"],
-                "B": params["B"]}
-        tiles = sampled_tiles(b_eff)
-        fn = lambda cl, at, hd, es, er, a1, fe, h, c, co: (  # noqa: E731
-            fused_att_scan_sampled(cl, at, hd, es, er, a1, fe, h, c, co,
-                                   "factored", tiles))
-        fn = _maybe_shard_map(fn, mesh, (False, False, False, True, True,
-                                         True, True, True, True, False))
-        # only the t=0 bootstrap column of the raw embeddings is consumed
-        return fn(cell, katt, head, emb_seq,
-                  embed(params, captions[:, :1]), att1,
-                  features, h0, c0, coins.astype(jnp.float32))
 
     def body(carry, xs):
         h, c, prev = carry
@@ -443,8 +356,6 @@ def rnn_att_forward_hiddens(
     teacher_forcing_ratio: float = 0.8,
     rng: Optional[jax.Array] = None,
     train: bool = True,
-    fused_scan: bool = False,
-    mesh=None,
 ) -> Tuple[jax.Array, jax.Array]:
     """NIC+Att training forward -> (hiddens, alphas); head left to the
     caller (see :func:`factored_att_forward_hiddens`)."""
@@ -464,20 +375,6 @@ def rnn_att_forward_hiddens(
 
     if (isinstance(teacher_forcing_ratio, float)
             and teacher_forcing_ratio >= 1.0):
-        b_eff = b // _data_shards(mesh)
-        if fused_scan and b_eff % 8 == 0:
-            from icee_tpu.ops.pallas_att_train import fused_att_scan
-
-            from icee_tpu.ops.pallas_att_train import teacher_tiles
-
-            cell, katt = _lstm_kernel_params(params, att, cfg.embed_size)
-            tiles = teacher_tiles(b_eff)
-            fn = lambda cl, at, es, a1, fe, h, c: fused_att_scan(  # noqa: E731
-                cl, at, es, a1, fe, h, c, "lstm", tiles)
-            fn = _maybe_shard_map(fn, mesh, (False, False, True, True,
-                                             True, True, True))
-            return fn(cell, katt, emb_seq, att1, features, h0, c0)
-
         def tf_body(carry, emb_teacher):
             h, c = carry
             context, alpha = _gated_context_pre(params, att, att1, features, h)
@@ -490,26 +387,6 @@ def rnn_att_forward_hiddens(
         return jnp.swapaxes(hiddens, 0, 1), jnp.swapaxes(alphas, 0, 1)
 
     coins = jax.random.bernoulli(k_tf, teacher_forcing_ratio, (t,))
-
-    b_eff = b // _data_shards(mesh)
-    if fused_scan and b_eff % 8 == 0:
-        from icee_tpu.ops.pallas_att_train import fused_att_scan_sampled
-
-        from icee_tpu.ops.pallas_att_train import sampled_tiles
-
-        cell, katt = _lstm_kernel_params(params, att, cfg.embed_size)
-        head = {"C_w": params["linear_w"], "C_b": params["linear_b"],
-                "B": params["embed"]}
-        tiles = sampled_tiles(b_eff)
-        fn = lambda cl, at, hd, es, er, a1, fe, h, c, co: (  # noqa: E731
-            fused_att_scan_sampled(cl, at, hd, es, er, a1, fe, h, c, co,
-                                   "lstm", tiles))
-        fn = _maybe_shard_map(fn, mesh, (False, False, False, True, True,
-                                         True, True, True, True, False))
-        # only the t=0 bootstrap column of the raw embeddings is consumed
-        return fn(cell, katt, head, emb_seq,
-                  jnp.take(params["embed"], captions[:, :1], axis=0), att1,
-                  features, h0, c0, coins.astype(jnp.float32))
 
     def body(carry, xs):
         h, c, prev = carry

@@ -9,7 +9,7 @@ Parity targets (SURVEY.md M1/M2):
   fc+pool, adaptive-avg-pool to a 14x14 grid, no trainable parameters beyond
   the (frozen) backbone.
 
-TPU design: the backbone runs under ``jax.lax.stop_gradient`` (the analogue of
+Design: the backbone runs under ``jax.lax.stop_gradient`` (the analogue of
 ``torch.no_grad`` in a functional setting) so XLA never materializes backbone
 gradients; features can also be precomputed once and cached device-side across
 epochs (the reference recomputes the frozen backbone every epoch — SURVEY.md
@@ -101,6 +101,6 @@ def encode_spatial(
 def encode_global_from_pooled(
     head: dict, pooled: jax.Array, train: bool = True, bn_momentum: float = 0.01
 ) -> Tuple[jax.Array, dict]:
-    """Head-only path for cached backbone features (the TPU-native fast path:
+    """Head-only path for cached backbone features (the fast path:
     run the frozen backbone once per image, reuse across epochs)."""
     return apply_head(head, pooled, train, bn_momentum)

@@ -1,4 +1,4 @@
-"""StyleNet FactoredLSTM decoder, TPU-native.
+"""StyleNet FactoredLSTM decoder in JAX.
 
 Capability parity with ``DecoderFactoredLSTM`` (``stylenet/model.py:30-294``,
 SURVEY.md M3/M4), re-designed for XLA:
@@ -107,8 +107,6 @@ def forward(
     teacher_forcing_ratio: float = 0.8,
     rng: Optional[jax.Array] = None,
     train: bool = True,
-    fused_scan: bool = False,
-    mesh=None,
 ) -> jax.Array:
     """Teacher-forced/scheduled training forward -> logits (B, T, V).
 
@@ -126,9 +124,9 @@ def forward(
     if isinstance(teacher_forcing_ratio, float) and teacher_forcing_ratio >= 1.0:
         hiddens = forward_hiddens(
             params, cfg, captions, features, style, teacher_forcing_ratio,
-            rng, train, fused_scan, mesh)
-        # the vocab head runs ONCE over all timesteps — a (B*T, H) @ (H, V)
-        # MXU matmul instead of T small ones
+            rng, train)
+        # the vocab head runs ONCE over all timesteps — one (B*T, H) @ (H, V)
+        # matmul instead of T small ones
         return hiddens @ params["C_w"] + params["C_b"]
 
     teacher_inputs, coins, style, (h0, c0) = _prep_forward(
@@ -191,8 +189,6 @@ def forward_hiddens(
     teacher_forcing_ratio: float = 0.8,
     rng: Optional[jax.Array] = None,
     train: bool = True,
-    fused_scan: bool = False,
-    mesh=None,
 ) -> jax.Array:
     """Training forward -> hidden states (B, T, H); same semantics as
     :func:`forward` with the vocab head left to the caller.
@@ -202,13 +198,6 @@ def forward_hiddens(
     path the head still runs per step to pick the argmax feedback token, but
     those transient logits carry no gradient (argmax is non-differentiable)
     and are never stacked.
-
-    ``mesh``: when the step runs data-parallel, the fused kernel call is
-    wrapped in ``shard_map`` over the data axis (each device scans its
-    shard; weight-grad cotangents psum automatically) — a bare
-    ``pallas_call`` has no GSPMD partitioning rule.  Everything around the
-    kernel (embedding, dropout draws, loss) stays in the global program, so
-    RNG draws match the single-device run exactly.
     """
     teacher_inputs, coins, style, (h0, c0) = _prep_forward(
         params, cfg, captions, features, style, teacher_forcing_ratio, rng,
@@ -217,27 +206,6 @@ def forward_hiddens(
     if coins is None:
         # fully teacher-forced fast path (ratio 1.0 == the reference's
         # always-true coin): no argmax feedback, scan carries only (h, c)
-        from icee_tpu.parallel.mesh import data_shards
-
-        nd = data_shards(mesh)
-        if fused_scan and (captions.shape[0] // nd) % 8 == 0:
-            # Pallas fused time scan: cell weights VMEM-resident across all
-            # timesteps, custom_vjp backward (ops/pallas_lstm.py)
-            from icee_tpu.ops.pallas_lstm import fused_factored_scan
-
-            sliced = {k: params[k] for k in
-                      ("V_w", "V_b", "U_w", "U_b", "W_w", "W_b")}
-            sliced["S_w"] = jnp.take(params["S_w"], style, axis=0)
-            sliced["S_b"] = jnp.take(params["S_b"], style, axis=0)
-            scan_fn = fused_factored_scan
-            if nd > 1:
-                from icee_tpu.parallel.mesh import kernel_shard_map
-
-                scan_fn = kernel_shard_map(
-                    lambda p, x: fused_factored_scan(p, x), mesh,
-                    in_batched=(False, True))
-            return scan_fn(sliced, teacher_inputs)
-
         def cell_body(carry, x_t):
             h, c = carry
             h, c = factored_lstm_cell(params, x_t, h, c, style)

@@ -1,10 +1,10 @@
-"""NIC (Show-and-Tell) decoder and generic multi-layer LSTM, TPU-native.
+"""NIC (Show-and-Tell) decoder and generic multi-layer LSTM in JAX.
 
 Parity targets: ``DecoderRNN`` (``nic/model.py:30-207``, SURVEY.md M6) — the
 StyleNet scaffolding with a stock ``nn.LSTMCell`` — plus the multi-layer
 ``nn.LSTM`` step used by the seq2seq family (``seq2seq/model.py:46-66``).
 
-Same TPU design as :mod:`icee_tpu.models.factored_lstm`: ``lax.scan`` over a
+Same design as :mod:`icee_tpu.models.factored_lstm`: ``lax.scan`` over a
 static padded batch, per-step shared teacher-forcing coin, masked loss outside.
 
 Init parity (``nic/model.py:56-70``): Xavier for >=2-D params, zero biases,
@@ -98,17 +98,13 @@ def forward(
     teacher_forcing_ratio: float = 0.8,
     rng: Optional[jax.Array] = None,
     train: bool = True,
-    fused_scan: bool = False,
-    mesh=None,
-    interpret=None,
 ) -> jax.Array:
     """Training forward -> logits (B, T, V); semantics identical to the
     FactoredLSTM forward (feature prepended as step-0 input,
     ``nic/model.py:82-111``)."""
     if isinstance(teacher_forcing_ratio, float) and teacher_forcing_ratio >= 1.0:
         hiddens = forward_hiddens(params, cfg, captions, features,
-                                  teacher_forcing_ratio, rng, train,
-                                  fused_scan, mesh, interpret)
+                                  teacher_forcing_ratio, rng, train)
         return hiddens @ params["linear_w"] + params["linear_b"]
 
     teacher_inputs, coins, (h0, c0) = _prep_forward(
@@ -163,39 +159,14 @@ def forward_hiddens(
     teacher_forcing_ratio: float = 0.8,
     rng: Optional[jax.Array] = None,
     train: bool = True,
-    fused_scan: bool = False,
-    mesh=None,
-    interpret=None,
 ) -> jax.Array:
     """Training forward -> hidden states (B, T, H); the vocab head is left
     to the caller (see ``ops/chunked_loss.py`` and the FactoredLSTM
-    counterpart for semantics).
-
-    ``fused_scan``: on the teacher-forced path, run the whole-scan Pallas
-    kernel (``ops/pallas_nic_train.py``) — both cell matrices VMEM-resident
-    across the time grid.  ``mesh``: wrap the kernel call in ``shard_map``
-    over the data axis when the step runs data-parallel (see the FactoredLSTM
-    counterpart for the composition rules)."""
+    counterpart for semantics)."""
     teacher_inputs, coins, (h0, c0) = _prep_forward(
         params, cfg, captions, features, teacher_forcing_ratio, rng, train)
 
     if coins is None:
-        from icee_tpu.parallel.mesh import data_shards
-
-        nd = data_shards(mesh)
-        if fused_scan and (captions.shape[0] // nd) % 8 == 0:
-            from icee_tpu.ops.pallas_nic_train import fused_nic_scan
-
-            def scan_fn(p, x):  # custom_vjp: positional args only
-                return fused_nic_scan(p, x, None, interpret)
-
-            if nd > 1:
-                from icee_tpu.parallel.mesh import kernel_shard_map
-
-                scan_fn = kernel_shard_map(
-                    scan_fn, mesh, in_batched=(False, True))
-            return scan_fn(params["cell"], teacher_inputs)
-
         def cell_body(carry, x_t):
             h, c = carry
             h, c = lstm_cell(params["cell"], x_t, h, c)

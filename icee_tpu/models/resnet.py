@@ -7,8 +7,8 @@ variant keeps the conv map and adaptive-pools to 14x14,
 this environment, so this module provides:
 
 - a faithful torchvision-architecture forward (bottleneck v1, layers
-  [3, 8, 36, 3]) in NHWC layout — the conv/matmul-heavy path XLA tiles onto
-  the MXU,
+  [3, 8, 36, 3]) in NHWC layout — the conv/matmul-heavy path XLA hands to
+  cuDNN and the tensor cores,
 - :func:`import_torch_state_dict` converting any torchvision ``resnet152``
   ``state_dict`` (pretrained or not) into our parameter pytree — numerical
   parity is tested against torch's own forward on random weights,
@@ -46,7 +46,7 @@ def conv(x: jax.Array, w: jax.Array, stride: int = 1, padding=None) -> jax.Array
         pw = (w.shape[1] - 1) // 2
         padding = ((ph, ph), (pw, pw))
     # run the conv in the WEIGHT dtype with f32 accumulation: bf16 weights
-    # put the whole backbone on the MXU's native precision (a no-op cast
+    # run the whole backbone in bf16 on the tensor cores (a no-op cast
     # for the default f32 params — mixed dtypes would otherwise silently
     # promote to f32 and lose the speedup).  BN params stay f32 either way.
     return jax.lax.conv_general_dilated(
@@ -165,7 +165,7 @@ def spatial_features(
 def cast_conv_weights(params, dtype):
     """Cast only the CONV kernels to ``dtype`` (bf16 backbone mode); BN
     affine/running stats stay f32 — the cheap normalizations keep full
-    precision while every conv runs on the MXU's native bf16."""
+    precision while every conv runs in bf16."""
     def walk(node):
         if isinstance(node, dict):
             return {
@@ -192,7 +192,13 @@ def _bn_init(c: int, dtype) -> dict:
 
 
 def init_params(key: jax.Array, dtype=jnp.float32) -> dict:
-    """He-normal random init (torchvision's default conv init)."""
+    """He-normal random init (torchvision's default conv init), with the
+    last BN scale of every residual branch at zero (torchvision's
+    ``zero_init_residual``), so each block starts as the identity.
+
+    Evaluated with untrained BN statistics, a plain init lets activations
+    grow through all 50 blocks to values of order 1e4; this way the
+    features of a random backbone stay of order one."""
 
     def he(k, shape):
         fan_out = shape[0] * shape[1] * shape[3]
@@ -214,6 +220,7 @@ def init_params(key: jax.Array, dtype=jnp.float32) -> dict:
                 "conv3": he(next(keys), (1, 1, planes, out_c)),
                 "bn3": _bn_init(out_c, dtype),
             }
+            p["bn3"]["weight"] = jnp.zeros((out_c,), dtype)
             if bi == 0:
                 p["downsample_conv"] = he(next(keys), (1, 1, in_c, out_c))
                 p["downsample_bn"] = _bn_init(out_c, dtype)

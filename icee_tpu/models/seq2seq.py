@@ -1,4 +1,4 @@
-"""Seq2seq style-transfer family, TPU-native.
+"""Seq2seq style-transfer family in JAX.
 
 Parity target: ``EncoderRNN`` / ``DecoderRNN`` / ``Seq2Seq``
 (``seq2seq/model.py:30-301``, SURVEY.md M8): an LSTM encoder over the factual
@@ -7,7 +7,7 @@ encoder's final (h, c) reaches the emotion decoders only at SAMPLE time —
 the reference's ``DecoderRNN.forward`` takes the states argument but zeroes
 its own h/c (``model.py:168-176``), a quirk this rebuild reproduces.
 
-TPU design: the three per-emotion decoders are one stacked parameter set
+Design: the three per-emotion decoders are one stacked parameter set
 ``(3, ...)`` selected by a traced emotion id, so a single compiled graph
 serves happy/sad/angry; both encoder and decoder time loops are ``lax.scan``.
 

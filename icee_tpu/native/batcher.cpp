@@ -4,7 +4,7 @@
 // re-tokenizing text per epoch (SURVEY.md §2.5).  Here captions are encoded
 // once into a flat ragged int32 store, and per-batch work reduces to
 // memcpy-with-padding — done in C++ threads so the Python feeder thread never
-// stalls the TPU step loop.
+// stalls the device step loop.
 //
 // Exposed C ABI (ctypes, see icee_tpu/native/__init__.py):
 //   make_padded_batch : gather ragged rows by index -> (n, max_len) padded

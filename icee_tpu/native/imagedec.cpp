@@ -1,7 +1,7 @@
 // Native JPEG decode + bilinear resize batch feeder.
 //
 // The reference's DataLoader workers decode JPEGs with PIL in Python
-// (stylenet/data_loader.py:57-66); this is the TPU-native host feeder:
+// (stylenet/data_loader.py:57-66); this is the native host feeder:
 // libjpeg decompression and resize in C++ threads, one call per batch, no
 // GIL.  Python falls back to the PIL path when the toolchain or libjpeg is
 // unavailable (icee_tpu/native/imagedec.py; outputs tested against PIL).

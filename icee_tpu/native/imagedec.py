@@ -1,7 +1,7 @@
 """Native JPEG batch feeder: C++ libjpeg decode + threaded bilinear resize.
 
 The reference decodes training images with PIL inside Python DataLoader
-workers (``stylenet/data_loader.py:57-66``); this module is the TPU-native
+workers (``stylenet/data_loader.py:57-66``); this module is the native
 host feeder — one ctypes call decodes and resizes a whole batch in C++
 threads with no GIL.  Falls back to the PIL path (bit-identical decode, see
 tolerance note below) when the toolchain or libjpeg is unavailable.

@@ -1,19 +1,3 @@
 from icee_tpu.ops.cells import factored_lstm_cell, lstm_cell, multilayer_lstm_cell
-from icee_tpu.ops.pallas_decode import fused_decode_step_topk
-from icee_tpu.ops.pallas_beam import mega_beam_decode
-from icee_tpu.ops.pallas_att_decode import (
-    fused_att_decode_step_topk,
-    mega_att_beam_decode,
-)
-from icee_tpu.ops.pallas_lstm import fused_factored_scan
 
-__all__ = [
-    "factored_lstm_cell",
-    "lstm_cell",
-    "multilayer_lstm_cell",
-    "fused_decode_step_topk",
-    "mega_beam_decode",
-    "fused_att_decode_step_topk",
-    "mega_att_beam_decode",
-    "fused_factored_scan",
-]
+__all__ = ["factored_lstm_cell", "lstm_cell", "multilayer_lstm_cell"]

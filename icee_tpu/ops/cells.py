@@ -1,12 +1,8 @@
-"""Recurrent cell math — the XLA reference implementations.
-
-These pure functions define the numerics that the Pallas kernels in
-:mod:`icee_tpu.ops.pallas_lstm` must reproduce bit-for-bit; tests compare the
-two paths and a NumPy oracle.
+"""Recurrent cell math in plain XLA; tests compare it with a NumPy oracle.
 
 Gate stacking: the reference builds each gate from four separate ``nn.Linear``
 modules (``stylenet/model.py:55-94``).  Here the four gates are one stacked
-tensor per projection so every step is a handful of large MXU matmuls instead
+tensor per projection so every step is a handful of large matmuls instead
 of 16 small ones:
 
 - ``V``: (E_in, 4F)   word/context -> factored space, all gates at once

@@ -3,25 +3,24 @@
 The reference training loss is ``CrossEntropyLoss()(logits, targets)`` over
 the packed token stream (``stylenet/train_multitask.py:300``) computed from
 fully materialized logits.  At production batch sizes that logits tensor
-dominates the training step: at B=512, T=25, V=8192 it is 420 MB written by
-the forward, re-read by the log-softmax, and re-read (plus its softmax
-residuals) by the backward.  The round-3 attribution probe
-(``scripts/probe_train_bwd.py``) measured the full fwd+bwd at 47.3 ms, of
-which only ~5 ms is the LSTM chain — the rest is this HBM traffic.
+is large: at B=512, T=25, V=8192 it is 420 MB written by the forward,
+re-read by the log-softmax, and re-read (plus its softmax residuals) by the
+backward.
 
 This module computes the *identical* masked token-mean CE directly from the
 (B, T, H) hidden states in TIME chunks with a :func:`jax.custom_vjp`:
 
 - forward: for each chunk of ``t_chunk`` timesteps, compute the (B, tc, V)
-  logits on the MXU, reduce to the chunk's logsumexp and target-logit
+  logits, reduce to the chunk's logsumexp and target-logit
   contributions, discard the logits — only the (B, tc) logsumexp residuals
   are kept for the backward;
 - backward: recompute each chunk's logits, form the softmax gradient in
   place (``p - onehot``, fused by XLA into the consuming matmuls), and
   accumulate dW/db/dx per chunk.
 
-Same-session TPU measurement (B=512/T=25/V=8192): 10.5 ms vs 47.3 ms full
-fwd+bwd, grads matching the materialized loss to <=2e-7 max|diff|.
+Grads match the materialized loss to <=2e-7 max|diff| (tested).  Whether
+it is on by default is the backend's choice (``core/backend.py``), from the
+on/off A/B of the train step on the card (PERF.md).
 
 Chunking along TIME (not flat rows) keeps the batch dimension intact, so
 the data-parallel trainers shard it over the mesh's data axis with no

@@ -1,6 +1,6 @@
 """Multi-host data feeding: per-process example sharding + global arrays.
 
-The reference is single-device (SURVEY.md §2.5); the TPU-native scale-out
+The reference is single-device (SURVEY.md §2.5); the scale-out
 path is: every host loads ONLY its shard of the dataset, builds its local
 slice of each global batch, and assembles a ``jax.Array`` spanning the mesh
 with ``jax.make_array_from_process_local_data`` — the collective-free

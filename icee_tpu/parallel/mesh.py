@@ -2,17 +2,19 @@
 
 The reference has NO distributed execution (SURVEY.md §2.5: no DDP, no
 torch.distributed, single ``cuda:0 or cpu`` device everywhere).  Here
-parallelism is first-class and TPU-native:
+parallelism is first-class:
 
-- a 2-D ``jax.sharding.Mesh`` with axes ``("data", "model")`` laid over ICI,
+- a 2-D ``jax.sharding.Mesh`` with axes ``("data", "model")``.  The GPUs of
+  one host are joined all to all by NVLink, so the mesh follows the
+  algorithm alone (no topology to respect); XLA hands its collectives to
+  NCCL,
 - **data parallelism**: the batch axis of every tensor shards over ``data``;
-  XLA inserts the gradient ``psum`` over ICI automatically,
+  XLA inserts the gradient all-reduce automatically,
 - **tensor parallelism**: the vocabulary dimension of the embedding ``B``
   and the output head ``C`` — the only large matrices in these models —
   shards over ``model``; logits stay vocab-sharded until the loss, whose
-  log-softmax reduction becomes an ICI collective,
-- multi-host: :func:`init_distributed` wraps ``jax.distributed.initialize``
-  (ICI within a slice, DCN across slices).
+  log-softmax reduction becomes a collective over ``model``,
+- multi-host: :func:`init_distributed` wraps ``jax.distributed.initialize``.
 
 Everything flows through ``jax.jit`` with ``NamedSharding`` constraints —
 no hand-written collectives needed for these model sizes.
@@ -62,25 +64,6 @@ def data_shards(mesh: Optional[Mesh]) -> int:
     return mesh.shape.get(DATA_AXIS, 1)
 
 
-def kernel_shard_map(fn, mesh: Mesh, in_batched: Sequence[bool]):
-    """Wrap a Pallas-kernel-calling ``fn`` in ``shard_map`` over the data
-    axis: batch-leading args split per device, weight pytrees replicated,
-    every output batch-leading.  A compiled ``pallas_call`` has no GSPMD
-    partitioning rule — without this wrapper a sharded batch operand would
-    be all-gathered and the kernel replicated per device.  ``shard_map`` is
-    differentiable: replicated inputs' cotangents (the weight grads) psum
-    over ICI automatically.
-
-    ``check_vma=False``: kernel glue may fall back to ``lax.scan`` whose
-    zero-init carries trip the varying-manifest-axes checker; correctness
-    is covered by the mesh-vs-single equivalence tests."""
-    from jax import shard_map
-
-    specs = tuple(P(DATA_AXIS) if b else P() for b in in_batched)
-    return shard_map(fn, mesh=mesh, in_specs=specs,
-                     out_specs=P(DATA_AXIS), check_vma=False)
-
-
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
 
@@ -125,8 +108,7 @@ def shard_pytree(tree, shardings):
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Multi-host bring-up (``jax.distributed.initialize``); collective
-    traffic rides ICI within a slice and DCN across slices.  No-op on a
+    """Multi-host bring-up (``jax.distributed.initialize``).  No-op on a
     single host with no coordinator configured."""
     if coordinator_address is None:
         return

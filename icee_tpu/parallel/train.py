@@ -3,7 +3,8 @@
 With GSPMD, the SAME jitted step functions from :mod:`icee_tpu.train.steps`
 run data/tensor-parallel once their inputs are placed: jit propagates argument
 shardings through the computation and inserts the gradient ``psum`` (data
-axis) and the vocab-dim collectives (model axis) over ICI automatically.
+axis) and the vocab-dim collectives (model axis) automatically; XLA hands
+them to NCCL on the GPU.
 This module owns the placement policy.
 """
 

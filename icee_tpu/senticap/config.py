@@ -49,7 +49,8 @@ def senticap_conf(**overrides: Any) -> Dict[str, Any]:
         "MIN_WORD_FREQ": 5,
         # icee_tpu extension (no reference counterpart): chunked training
         # loss — the (B, T, V) distributions never materialize
-        # (ops/chunked_loss.py).  None = auto: on for the TPU backend.
+        # (ops/chunked_loss.py).  None = the platform's default
+        # (core/backend.py).
         "CHUNKED_CE": None,
     }
     conf.update(overrides)

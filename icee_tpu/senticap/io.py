@@ -1,4 +1,4 @@
-"""SentiCap data provider, TPU-native.
+"""SentiCap data provider in JAX.
 
 Parity target: ``mrnn_io.py`` (SURVEY.md C1): a dataset registry mapping
 names to a visual-feature file (.mat/.npz VGG-4096) + caption file
@@ -11,7 +11,7 @@ Layout conventions preserved: index 0 is the STOP token ("."), captions are
 arranged ``[START(=STOP id), w1, ..., wn, STOP]`` padded to
 ``MAX_SENTENCE_LEN+1``; ``Xlen`` masks the prediction positions.
 
-TPU-native addition: :func:`device_dataset` pins the whole split on device
+Addition: :func:`device_dataset` pins the whole split on device
 (the analogue of the reference's Theano shared-variable training set,
 ``mrnn.py:581-596``) so jitted steps gather minibatches by index without
 host transfers.
@@ -184,7 +184,7 @@ def make_split(
 
 
 def device_dataset(ds: SentiDataset):
-    """Pin a split on device — the TPU analogue of the reference's
+    """Pin a split on device — the analogue of the reference's
     GPU-resident Theano shared arrays (``mrnn.py:581-596``).  Jitted train
     steps gather minibatch rows by an index vector, so epochs run without
     host->device copies."""

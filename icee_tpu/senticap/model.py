@@ -1,4 +1,4 @@
-"""Base multimodal RNN (mRNN) language/caption model, TPU-native.
+"""Base multimodal RNN (mRNN) language/caption model in JAX.
 
 Parity target: the Theano ``RNNModel`` (``senticap/mrnn/mrnn.py``,
 SURVEY.md C2).  The symbolic ``theano.scan`` graphs become ``lax.scan``;
@@ -55,31 +55,12 @@ def _gca_bwd(bound, g):
 grad_clip_act.defvjp(_gca_fwd, _gca_bwd)
 
 
-def fused_scan_requested(conf: dict) -> bool:
-    """THE auto-resolution rule for ``conf["FUSED_SCAN"]`` (None = on for
-    the TPU backend) — shared by the forward glue here and the step
-    builders in ``senticap/train.py`` so the shard_map-vs-GSPMD routing
-    can never diverge from kernel engagement."""
-    knob = conf.get("FUSED_SCAN")
-    if knob is None:
-        return jax.default_backend() == "tpu"
-    return bool(knob)
-
-
 def chunked_ce_requested(conf: dict) -> bool:
-    """Auto-resolution rule for ``conf["CHUNKED_CE"]`` (None = on for the
-    TPU backend); SOFTMAX_OUT-guarded by the callers that need it."""
-    knob = conf.get("CHUNKED_CE")
-    if knob is None:
-        return jax.default_backend() == "tpu"
-    return bool(knob)
+    """Resolution of ``conf["CHUNKED_CE"]`` (None = the backend's choice,
+    ``core/backend.py``); SOFTMAX_OUT-guarded by the callers that need it."""
+    from icee_tpu.core import backend
 
-
-def _use_fused_scan(conf: dict, b: int, batch_norm: bool) -> bool:
-    """Route the teacher-forced hidden-state scan through the whole-scan
-    Pallas kernel (``ops/pallas_senticap_train.py``); the BATCH_NORM
-    affine quirk branch stays on the XLA scan."""
-    return fused_scan_requested(conf) and not batch_norm and b % 8 == 0
+    return backend.resolve_chunked_ce(conf.get("CHUNKED_CE"))
 
 
 # --- parameters -----------------------------------------------------------
@@ -218,15 +199,6 @@ def forward(
         x_drop = jnp.ones_like(emb)
     if y_drop is None:
         y_drop = jnp.ones((b, t, h_dim), emb.dtype)
-
-    if return_hiddens and _use_fused_scan(conf, b, bn):
-        from icee_tpu.ops.pallas_senticap_train import fused_senticap_scan
-
-        x_full = jnp.where(use_v[None, :, None], vis[:, None, :], emb)
-        if conf["DROP_INPUT"]:
-            x_full = x_full * x_drop
-        h_seq = fused_senticap_scan(params["w_lstm"], x_full, gclip)
-        return h_seq * y_drop if conf["DROP_OUTPUT"] else h_seq
 
     def body(carry, xs):
         h, c = carry

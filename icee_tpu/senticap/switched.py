@@ -1,4 +1,4 @@
-"""SentiCap switched two-LSTM model, TPU-native.
+"""SentiCap switched two-LSTM model in JAX.
 
 Parity target: ``mrnn_switched.py`` (SURVEY.md C3) — the actual SentiCap
 method: a frozen-ish background caption LSTM plus a sentiment LSTM with a
@@ -188,34 +188,6 @@ def forward(
     if y_drop is None:
         y_drop = jnp.ones((b, t, hs))
     use_v = jnp.arange(t) == 0 if use_visual else jnp.zeros((t,), bool)
-
-    from icee_tpu.senticap.model import _use_fused_scan
-
-    if return_hiddens and _use_fused_scan(conf, b, False):
-        # the two recurrences are independent (the switch gate mixes their
-        # OUTPUTS, mrnn_switched.py:792-843) -> two whole-scan kernel calls;
-        # the gate itself is one big (B*T, 2H) matmul outside
-        from icee_tpu.ops.pallas_senticap_train import fused_senticap_scan
-
-        gclip = conf["GRAD_CLIP_SIZE"]
-
-        def path(sw_path, drop):
-            base = _base_view(params, sw_path)
-            emb = jnp.take(base["wemb"], words, axis=0)
-            vis = v @ base["wvm"] + base["bmv"]
-            x_full = jnp.where(use_v[None, :, None], vis[:, None, :], emb)
-            if conf["DROP_INPUT"] and drop is not None:
-                x_full = x_full * drop
-            return fused_senticap_scan(base["w_lstm"], x_full, gclip)
-
-        h_o = path(False, None)                             # (B, T, H)
-        h_n = path(True, x_drop)
-        att = jax.nn.sigmoid(
-            jnp.concatenate([h_o, h_n], axis=-1) @ params["att_w"]
-            + params["att_b"])[..., 0]                      # (B, T)
-        hh_n = h_n * y_drop if conf["DROP_OUTPUT"] else h_n
-        return ((h_o, hh_n, att),
-                jnp.log(att), jnp.log(1.0 - att))
 
     def body(carry, xs):
         h, c = carry

@@ -136,9 +136,9 @@ def serve(config: Optional[ServeConfig] = None, smoke: bool = False,
 
 
 def main():
-    from icee_tpu.cli.common import apply_platform_env
+    from icee_tpu.core.backend import start_entry_point
 
-    apply_platform_env()
+    start_entry_point()
     parser = argparse.ArgumentParser()
     parser.add_argument("--env", type=str, default=".env")
     parser.add_argument("--smoke", action="store_true",

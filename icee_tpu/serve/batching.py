@@ -2,18 +2,17 @@
 
 The reference serves one request at a time (``app/backend/run.py:23-61``);
 round 1 fixed its reload-per-request hot spot but still decoded each request
-alone.  On TPU the beam decode is throughput-bound — a (batch, k, ...) beam
-costs barely more than a single image — so concurrent requests SHOULD share
-one device call.
+alone.  On an accelerator the beam decode is throughput-bound — a
+(batch, k, ...) beam costs barely more than a single image — so concurrent
+requests SHOULD share one device call.
 
 :class:`BatchingEngine` wraps :class:`icee_tpu.serve.engine.CaptionEngine`
 with the same ``caption(image_path, mode)`` contract.  Concurrent callers
 enqueue; a collector thread drains the queue for a small window
 (``window_ms``, default 4 ms) or until ``max_batch``, groups requests by
 mode, and decodes each (variant, mode) group with ONE batched device call
-through the shared fast-path chain (``decode/fast.py``: mega kernels on
-TPU, XLA beam elsewhere).  Feature batches are padded to the next power of
-two so each (variant, batch-bucket) compiles once.
+(``decode/fast.py``).  Feature batches are padded to the next power of two
+so each (variant, batch-bucket) compiles once.
 
 ``beam_search_batched`` is proved equivalent to ``vmap(beam_search)``
 (``tests/test_beam_batched.py``), so captions are identical to the serial
@@ -112,7 +111,7 @@ class BatchingEngine:
         style = jnp.asarray(mode_id(mode))
         pooled_list, spatial_list = [], []
         for item in items:
-            pooled, spatial = eng._features(item.image_path)
+            pooled, spatial = eng._features(eng.decode_image(item.image_path))
             pooled_list.append(pooled)
             spatial_list.append(spatial[0])
         pooled_b = jnp.concatenate(pooled_list, axis=0)     # (n, 2048)
@@ -151,77 +150,16 @@ class BatchingEngine:
         natively batched."""
         eng = self.engine
         dec = eng.models[variant][mode]["decoder"]
-        # mode is part of the key: stacked-style decoders share one params
-        # object across modes, differing only in the style id
-        key = (variant, id(dec), mode, n)
+        # the style id is an argument of the compiled decode, so every mode
+        # of a shared decoder reuses one program
+        key = (variant, id(dec), n)
         if key in self._decode_cache:
             return self._decode_cache[key]
-        import jax.numpy as jnp
-
         from icee_tpu.decode import fast
 
-        k = self.k
-        vocab_size = len(eng.vocab)
-
-        if variant == "stylenet":
-            # shared fast-path chain: mega kernel -> fused step -> XLA
-            # (serving semantics: feature fed at step 1)
-            candidates = fast.factored_candidates(
-                dec, jnp.asarray(mode_id(mode)), n, k,
-                eng.dec_cfg.max_seq_length, vocab_size, eng.vocab.start,
-                eng.vocab.end, eng.dec_cfg.hidden_size, feed_feature=True,
-                n_img_block=min(64, n))
-            picked = {}
-
-            def run(feat, style):  # feat (n, E)
-                del style  # candidates close over per-mode params
-                tiled = jnp.repeat(feat[:, None, :], k, axis=1)
-                if "fn" not in picked:
-                    _, picked["fn"] = fast.pick_first_compiling(
-                        candidates, tiled)
-                return picked["fn"](tiled)
-        elif variant == "nic":
-            nic_cands = fast.nic_candidates(
-                dec, n, k, eng.dec_cfg.max_seq_length, vocab_size,
-                eng.vocab.start, eng.vocab.end, eng.dec_cfg.hidden_size,
-                n_img_block=min(64, n))
-            picked_nic = {}
-
-            def run(feat, style):
-                del style
-                tiled = jnp.repeat(feat[:, None, :], k, axis=1)
-                if "fn" not in picked_nic:
-                    _, picked_nic["fn"] = fast.pick_first_compiling(
-                        nic_cands, tiled)
-                return picked_nic["fn"](tiled)
-        elif variant == "stylenet_att":
-            # shared fast-path chain (attention mega kernel on TPU)
-            att_candidates = fast.attention_candidates(
-                dec, jnp.asarray(mode_id(mode)), n, k,
-                eng.att_cfg.max_seq_length, vocab_size, eng.vocab.start,
-                eng.vocab.end, n_img_block=min(24, n))
-            picked_att = {}
-
-            def run(spatial, style):  # (n, P, D)
-                del style
-                if "fn" not in picked_att:
-                    _, picked_att["fn"] = fast.pick_first_compiling(
-                        att_candidates, spatial)
-                return picked_att["fn"](spatial)
-        else:  # nic_att
-            na_cands = fast.nic_att_candidates(
-                dec, n, k, eng.att_cfg.max_seq_length, vocab_size,
-                eng.vocab.start, eng.vocab.end, n_img_block=min(24, n))
-            picked_na = {}
-
-            def run(spatial, style):
-                del style
-                if "fn" not in picked_na:
-                    _, picked_na["fn"] = fast.pick_first_compiling(
-                        na_cands, spatial)
-                return picked_na["fn"](spatial)
-
-        # every variant now routes through the fast-path chain, whose
-        # candidate probing must happen OUTSIDE jit (candidates are jitted)
-        self._decode_cache[key] = run
-        return run
+        cfg = eng.att_cfg if variant.endswith("_att") else eng.dec_cfg
+        fn = fast.beam_fn(
+            variant, dec, n, self.k, cfg.max_seq_length, len(eng.vocab),
+            eng.vocab.start, eng.vocab.end, feed_feature=True)
+        self._decode_cache[key] = fn
+        return fn

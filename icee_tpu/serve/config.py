@@ -49,7 +49,7 @@ class ServeConfig:
     image_folder: str = "uploads/"
     vocab_path: Optional[str] = None
     resnet_weights: Optional[str] = None
-    # "bfloat16" runs the backbone convs on the MXU's native precision
+    # "bfloat16" runs the backbone convs in bf16 on the tensor cores
     backbone_dtype: str = "float32"
     # >0: group concurrent /generate requests for this many ms and decode
     # them with ONE batched beam call (serve/batching.py); 0 = per-request

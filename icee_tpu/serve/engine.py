@@ -4,8 +4,10 @@ Parity target + fix: the reference serving pipeline unpickles ENTIRE model
 modules from disk on EVERY request (``app/backend/sample.py:52-97``,
 ``model.py:490-499`` — SURVEY.md flags this as the latency hot spot).  Here
 every (variant, mode) pipeline is loaded once at startup and its beam decode
-is compiled once; requests run image decode (host) -> ResNet (TPU) -> beam
-(TPU) with no model IO.
+is compiled once; requests run image decode (host) -> ResNet (device) ->
+beam (device) with no model IO.  The JPEG decoder is chosen when the engine
+starts (:func:`icee_tpu.data.transforms.pick_image_decoder`); everything
+from :meth:`CaptionEngine._features` on takes a decoded uint8 array.
 
 Beam semantics are the serving copy's (image feature fed at step 1,
 ``app/backend/model.py:414-417``).
@@ -41,8 +43,12 @@ class CaptionEngine:
         from icee_tpu.models import encoder as enc_mod
         from icee_tpu.models import resnet
 
+        from icee_tpu.data.transforms import pick_image_decoder
+
         self.config = config
         self.image_size = image_size
+        # refuse to start, not fail at the first request, without a decoder
+        self.decode_image = pick_image_decoder(image_size)
         if config.vocab_path and os.path.exists(config.vocab_path):
             self.vocab = load_vocab(config.vocab_path)
         elif smoke_mode:
@@ -120,7 +126,7 @@ class CaptionEngine:
                 self.models[variant] = modes
 
     def _restore(self, variant, path, dec_template, head_template):
-        """Load our orbax checkpoints or reference torch pickles."""
+        """Load our checkpoints or reference torch pickles."""
         if path.endswith((".pth", ".tar", ".ckpt")):
             from icee_tpu.checkpoint import torch_import as ti
             from icee_tpu.checkpoint.torch_pickle import (
@@ -157,14 +163,11 @@ class CaptionEngine:
 
     # -- inference --------------------------------------------------------
 
-    def _features(self, image_path: str):
-        """ONE jitted backbone pass; pooled + spatial both derive from the
-        same feature map (the review found the previous version running the
-        full ResNet twice per request)."""
+    def _features(self, img: np.ndarray):
+        """ONE jitted backbone pass over a decoded ``(S, S, 3)`` uint8 image;
+        pooled + spatial both derive from the same feature map."""
         import jax
         import jax.numpy as jnp
-
-        from icee_tpu.data.transforms import host_decode_resize
 
         if not hasattr(self, "_features_fn"):
             from icee_tpu.data.transforms import normalize
@@ -180,7 +183,6 @@ class CaptionEngine:
 
             self._features_fn = run
 
-        img = host_decode_resize(image_path, self.image_size)
         return self._features_fn(jnp.asarray(img))
 
     def _decode_fn(self, variant: str, mode: str, k: int = 5):
@@ -278,7 +280,7 @@ class CaptionEngine:
         if mode not in MODES:
             raise ValueError(f"invalid mode {mode}")
         style = jnp.asarray(mode_id(mode))
-        pooled, spatial = self._features(image_path)
+        pooled, spatial = self._features(self.decode_image(image_path))
         out = {}
         for variant in MODEL_VARIANTS:
             pipeline = self.models.get(variant, {}).get(mode)

@@ -16,7 +16,7 @@
     '  <div class="jumbotron">',
     '    <h1 class="display-4">Image Captioning with Emotion</h1>',
     '    <p class="lead">',
-    '      Generating image caption with emotion in bahasa — TPU-native',
+    '      Generating image caption with emotion in bahasa — JAX',
     '      rebuild (icee_tpu) of the reference final-project app.',
     '    </p>',
     '    <hr class="my-4">',

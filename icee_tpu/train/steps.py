@@ -21,7 +21,6 @@ the reference's preallocated ``alphas`` buffer.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import jax
@@ -34,6 +33,7 @@ from icee_tpu.core.config import (
     Seq2SeqConfig,
     TrainConfig,
 )
+from icee_tpu.core import backend
 from icee_tpu.evaluation.metrics import (
     length_mask,
     masked_cross_entropy,
@@ -80,7 +80,6 @@ def make_caption_steps(
     optimizer: optax.GradientTransformation,
     lang_optimizer: optax.GradientTransformation,
     factored: bool = True,
-    mesh=None,
 ):
     """Steps for the non-attention captioners over cached pooled features.
 
@@ -88,30 +87,17 @@ def make_caption_steps(
     ``lang_optimizer`` covers the decoder only — the emotion track
     (``train_multitask.py:163-167``).
 
-    ``mesh``: the device mesh the step will run under (data-parallel).  The
-    fused whole-scan kernels are wrapped in ``shard_map`` over the data
-    axis at their call sites (a bare ``pallas_call`` has no GSPMD
-    partitioning rule); everything else stays in the global program so
-    semantics match the single-device run (RNG draws identical; only
-    cross-device reduction order differs).
+    The steps are plain jitted programs: under a data-parallel mesh GSPMD
+    partitions them from the input shardings, so RNG draws match the
+    single-device run (only cross-device reduction order differs).
     """
-    use_fused = tcfg.fused_scan
-    if use_fused is None:  # auto: the kernel wins ~5% on TPU, interpret-slow elsewhere
-        use_fused = jax.default_backend() == "tpu"
-    use_chunked = tcfg.chunked_ce
-    if use_chunked is None:  # auto: 4.5x at large batch on TPU (chunked_loss.py)
-        use_chunked = jax.default_backend() == "tpu"
-    fwd = (functools.partial(fl.forward, fused_scan=use_fused, mesh=mesh)
-           if factored else
+    use_chunked = backend.resolve_chunked_ce(tcfg.chunked_ce)
+    fwd = (fl.forward if factored else
            lambda p, c, caps, feats, style, **kw: nic.forward(
-               p, c, caps, feats, fused_scan=use_fused, mesh=mesh, **kw)
-    )
-    fwd_h = (functools.partial(fl.forward_hiddens, fused_scan=use_fused,
-                               mesh=mesh)
-             if factored else
+               p, c, caps, feats, **kw))
+    fwd_h = (fl.forward_hiddens if factored else
              lambda p, c, caps, feats, style, **kw: nic.forward_hiddens(
-                 p, c, caps, feats, fused_scan=use_fused, mesh=mesh, **kw)
-    )
+                 p, c, caps, feats, **kw))
     head_of = ((lambda d: (d["C_w"], d["C_b"])) if factored
                else (lambda d: (d["linear_w"], d["linear_b"])))
 
@@ -193,7 +179,6 @@ def make_attention_steps(
     optimizer: optax.GradientTransformation,
     lang_optimizer: optax.GradientTransformation,
     factored: bool = True,
-    mesh=None,
 ):
     """Steps for the attention captioners (spatial encoder has no trainable
     parameters, so both optimizers cover the decoder;
@@ -201,16 +186,8 @@ def make_attention_steps(
 
     Inputs/targets are shifted: model consumes ``captions[:, :-1]`` and
     predicts ``captions[:, 1:]`` with lengths-1.
-
-    ``mesh``: see :func:`make_caption_steps` — fused kernels run per data
-    shard inside ``shard_map``.
     """
-    use_chunked = tcfg.chunked_ce
-    if use_chunked is None:  # auto: 4.5x at large batch on TPU (chunked_loss.py)
-        use_chunked = jax.default_backend() == "tpu"
-    use_fused = tcfg.fused_scan
-    if use_fused is None:  # auto: whole-scan kernel on TPU (pallas_att_train)
-        use_fused = jax.default_backend() == "tpu"
+    use_chunked = backend.resolve_chunked_ce(tcfg.chunked_ce)
 
     def _forward(dec, features, captions_in, style, rng, train, tf_ratio):
         if factored:
@@ -260,13 +237,13 @@ def make_attention_steps(
             hiddens, alphas = att_mod.factored_att_forward_hiddens(
                 dec, cfg, captions_in, features, style,
                 teacher_forcing_ratio=tcfg.teacher_forcing_ratio, rng=rng,
-                train=True, fused_scan=use_fused, mesh=mesh)
+                train=True)
             head_w, head_b = dec["C_w"], dec["C_b"]
         else:
             hiddens, alphas = att_mod.rnn_att_forward_hiddens(
                 dec, cfg, captions_in, features,
                 teacher_forcing_ratio=tcfg.teacher_forcing_ratio, rng=rng,
-                train=True, fused_scan=use_fused, mesh=mesh)
+                train=True)
             head_w, head_b = dec["linear_w"], dec["linear_b"]
         ce = masked_ce_from_hiddens(hiddens, head_w, head_b, targets,
                                     tgt_len, sample_mask)
@@ -315,9 +292,7 @@ def make_seq2seq_steps(
     ``emotion_optimizer`` covers the stacked emotion decoders with a
     per-emotion slice mask applied at call time (reference keeps one Adam per
     emotion decoder, ``seq2seq/train.py:141-158``)."""
-    use_chunked = tcfg.chunked_ce
-    if use_chunked is None:  # auto: 4.5x at large batch on TPU (chunked_loss.py)
-        use_chunked = jax.default_backend() == "tpu"
+    use_chunked = backend.resolve_chunked_ce(tcfg.chunked_ce)
 
     @jax.jit
     def factual_train_step(params, head, opt_state, pooled, captions, lengths,

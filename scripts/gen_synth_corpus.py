@@ -19,6 +19,7 @@ captions — the reference's Flickr8k-id scale (SURVEY §6).
 
 import argparse
 import os
+import zlib
 
 import numpy as np
 
@@ -70,13 +71,19 @@ def caption(rng, sc, emotion=None):
     return c + "."
 
 
+def _stable_hash(key, value) -> int:
+    """A seed for the direction of one attribute value, the same in every
+    process (Python's ``hash`` of a string changes from run to run)."""
+    return zlib.crc32(f"{key}={value}".encode())
+
+
 def attr_feature(rng_feat, sc, dim=2048, noise=0.1):
     """Deterministic scene embedding + per-image noise: each attribute
     value hashes to a fixed random direction, the feature is their sum —
     so features genuinely predict the caption content."""
     v = np.zeros(dim, np.float32)
     for key in ("s", "v", "o", "p", "mod"):
-        h = abs(hash((key, sc[key]))) % (2**31)
+        h = _stable_hash(key, sc[key])
         r = np.random.default_rng(h)
         v += r.standard_normal(dim).astype(np.float32)
     v /= np.linalg.norm(v) / 6.0
@@ -92,7 +99,7 @@ def spatial_feature(rng_feat, sc, grid=196, dim=2048, noise=0.1,
     scaled), matching how the attention decoders init h/c from the mean."""
     v = noise * rng_feat.standard_normal((grid, dim)).astype(np.float32)
     for key in ("s", "v", "o", "p", "mod"):
-        h = abs(hash((key, sc[key]))) % (2**31)
+        h = _stable_hash(key, sc[key])
         r = np.random.default_rng(h)
         d = r.standard_normal(dim).astype(np.float32)
         d /= np.linalg.norm(d) / 6.0

@@ -1,5 +1,4 @@
-"""beam_search_batched (native batch, fused-kernel layout) must equal
-vmap(beam_search) — XLA path and Pallas interpret path."""
+"""beam_search_batched (native batch) must equal vmap(beam_search)."""
 
 import numpy as np
 import jax
@@ -9,7 +8,6 @@ import pytest
 from icee_tpu.core.config import DecoderConfig
 from icee_tpu.decode.beam import beam_search, beam_search_batched
 from icee_tpu.models import factored_lstm as fl
-from icee_tpu.ops.pallas_decode import fused_decode_step_topk
 
 K = 5
 
@@ -55,41 +53,3 @@ def test_batched_matches_vmap(rng, seed):
                                       np.asarray(want.tokens[b, :L]))
     np.testing.assert_allclose(np.asarray(got.score), np.asarray(want.score),
                                rtol=1e-5, atol=1e-5)
-
-
-def test_batched_fused_kernel_matches_xla(rng):
-    cfg, dec = _model(3, vocab=128)
-    batch = 4
-    feats = jnp.asarray(
-        rng.standard_normal((batch, K, cfg.embed_size)).astype(np.float32))
-    style = jnp.asarray(1)
-
-    xla = beam_search_batched(
-        embed_fn=lambda t: fl.embed(dec, t),
-        step_fn=lambda x, s: fl.decode_step(dec, x, s, style),
-        init_model_state=fl.initial_state(batch * K, cfg),
-        start_token=1, end_token=2, k=K,
-        max_seq_length=cfg.max_seq_length, vocab_size=cfg.vocab_size,
-        batch=batch, first_input=feats)
-
-    def topk_step(x, state):
-        h, c = state
-        vals, idx, h2, c2 = fused_decode_step_topk(
-            dec, x, h, c, style, ktop=K, row_block=batch * K, v_tile=64,
-            interpret=True)
-        return vals, idx, (h2, c2)
-
-    fused = beam_search_batched(
-        embed_fn=lambda t: fl.embed(dec, t),
-        step_fn=None,
-        init_model_state=fl.initial_state(batch * K, cfg),
-        start_token=1, end_token=2, k=K,
-        max_seq_length=cfg.max_seq_length, vocab_size=cfg.vocab_size,
-        batch=batch, first_input=feats, step_topk_fn=topk_step)
-
-    np.testing.assert_array_equal(np.asarray(fused.length),
-                                  np.asarray(xla.length))
-    np.testing.assert_array_equal(np.asarray(fused.tokens),
-                                  np.asarray(xla.tokens))
-    np.testing.assert_allclose(np.asarray(fused.score), np.asarray(xla.score),
-                               rtol=1e-4, atol=1e-4)

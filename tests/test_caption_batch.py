@@ -70,9 +70,9 @@ def test_caption_batch_reproduces_overfit_captions(tmp_path):
 
 
 def test_caption_batch_data_parallel_matches_single(tmp_path):
-    """--data_parallel path: sharded mega decode over the 8-device virtual
-    mesh (interpret mode) must produce the same captions as the
-    single-device chain."""
+    """--data_parallel path: the beam under shard_map over the 8-device
+    virtual mesh must produce the same captions as the single-device
+    decode."""
     from icee_tpu.parallel.mesh import make_mesh
 
     (tmp_path / "train.txt").write_text(CORPUS)
@@ -95,14 +95,13 @@ def test_caption_batch_data_parallel_matches_single(tmp_path):
                            k=3, feed_feature=True)
     sharded = caption_batch(dec, head, cfg, vocab, names,
                             lambda n: feats[n], mode_idx=1, batch_size=8,
-                            k=3, feed_feature=True, mesh=make_mesh(),
-                            interpret=True)
+                            k=3, feed_feature=True, mesh=make_mesh())
     assert single == sharded
 
 
 def test_evaluate_data_parallel_matches_single(tmp_path, capsys):
-    """cli/evaluate.evaluate with a mesh (sharded mega decode, interpret)
-    must report the same BLEU as the single-device chain."""
+    """cli/evaluate.evaluate with a mesh (the beam under shard_map) must
+    report the same BLEU as the single-device decode."""
     from icee_tpu.cli.evaluate import evaluate
     from icee_tpu.parallel.mesh import make_mesh
 
@@ -123,15 +122,14 @@ def test_evaluate_data_parallel_matches_single(tmp_path, capsys):
     kw = dict(batch_size=8, k=3, print_pairs=False, feed_feature=True)
     single = evaluate(dec, head, cfg, vocab, ds, lambda n: feats[n], 0, **kw)
     sharded = evaluate(dec, head, cfg, vocab, ds, lambda n: feats[n], 0,
-                       mesh=make_mesh(), interpret=True, **kw)
+                       mesh=make_mesh(), **kw)
     assert single == sharded
 
 
 def test_evaluate_data_parallel_attention_matches_single(tmp_path):
-    """ATTENTION-family --data_parallel (sharded_mega_att_decode, VERDICT
-    r2 #3): evaluate with a mesh must report the same BLEU as the
-    single-device attention chain (stylenet_att, the reference's best
-    model family — evaluator.py:59-120)."""
+    """ATTENTION-family --data_parallel: evaluate with a mesh must report
+    the same BLEU as the single-device attention decode (stylenet_att, the
+    reference's best model family — evaluator.py:59-120)."""
     from icee_tpu.cli.evaluate import evaluate
     from icee_tpu.core.config import AttentionDecoderConfig
     from icee_tpu.models import attention as att_mod
@@ -154,5 +152,5 @@ def test_evaluate_data_parallel_attention_matches_single(tmp_path):
     kw = dict(batch_size=8, k=3, print_pairs=False, attention=True)
     single = evaluate(dec, None, cfg, vocab, ds, lambda n: feats[n], 1, **kw)
     sharded = evaluate(dec, None, cfg, vocab, ds, lambda n: feats[n], 1,
-                       mesh=make_mesh(), interpret=True, **kw)
+                       mesh=make_mesh(), **kw)
     assert single == sharded

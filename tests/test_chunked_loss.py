@@ -121,8 +121,7 @@ def test_train_step_chunked_matches_materialized(rng, factored, ratio):
 
     outs = {}
     for chunked in (False, True):
-        tcfg = TrainConfig(teacher_forcing_ratio=ratio, fused_scan=False,
-                           chunked_ce=chunked)
+        tcfg = TrainConfig(teacher_forcing_ratio=ratio, chunked_ce=chunked)
         fac, emo, _ = make_caption_steps(cfg, tcfg, opt, opt,
                                          factored=factored)
         opt_state = opt.init((params, head))

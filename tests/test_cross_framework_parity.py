@@ -6,7 +6,7 @@ FactoredLSTM with the REFERENCE's module naming, run the REFERENCE's
 shrinking-beam algorithm in torch (serving semantics, feature fed at
 step 1 — the transcription in ``scripts/baseline_torch.py``), import the
 state_dict through ``checkpoint/torch_import.py``, decode the SAME features
-with icee_tpu's beam (XLA + mega kernel), and require IDENTICAL captions.
+with icee_tpu's batched beam, and require IDENTICAL captions.
 """
 
 import numpy as np
@@ -118,38 +118,30 @@ def test_torch_reference_beam_matches_icee(rng, style_idx, style_prefix):
     from icee_tpu.checkpoint.torch_import import (
         import_factored_decoder_state_dict,
     )
-    from icee_tpu.decode.fast import factored_candidates
-    from icee_tpu.ops.pallas_beam import mega_beam_decode
+    from icee_tpu.decode.fast import beam_fn
 
     sd = _torch_state_dict()
     params = import_factored_decoder_state_dict(sd)
 
     batch = 4
     feats_t = torch.randn(batch, E, generator=torch.Generator().manual_seed(7))
-    feats_j = jnp.asarray(feats_t.numpy())[:, None, :].repeat(K, axis=1)
+    feats_j = jnp.asarray(feats_t.numpy())
 
     # torch reference algorithm, one image at a time
     want = [_torch_beam(sd, style_prefix, feats_t[i:i + 1])
             for i in range(batch)]
 
-    # icee_tpu: XLA batched beam AND the mega kernel, serving semantics
-    style = jnp.asarray(style_idx)
-    cands = dict(factored_candidates(
-        params, style, batch, K, MAX_STEPS, V, 1, 2, H,
-        feed_feature=True))
-    res_xla = cands["xla"](feats_j)
-    res_mega = mega_beam_decode(
-        params, feats_j, style, batch, start_token=1, end_token=2, k=K,
-        max_seq_length=MAX_STEPS, n_img_block=2, v_tile=96, interpret=True)
+    # icee_tpu: the batched beam, serving semantics
+    res = beam_fn("stylenet", params, batch, K, MAX_STEPS, V, 1, 2,
+                  feed_feature=True)(feats_j, style_idx)
 
     for i in range(batch):
         want_tokens, want_score = want[i]
-        for res in (res_xla, res_mega):
-            got = np.asarray(res.tokens[i][: int(res.length[i])]).tolist()
-            assert got == want_tokens, (
-                f"img {i}: torch {want_tokens} != icee {got}")
+        got = np.asarray(res.tokens[i][: int(res.length[i])]).tolist()
+        assert got == want_tokens, (
+            f"img {i}: torch {want_tokens} != icee {got}")
         if np.isfinite(want_score):
-            np.testing.assert_allclose(float(res_mega.score[i]), want_score,
+            np.testing.assert_allclose(float(res.score[i]), want_score,
                                        rtol=1e-4)
 
 
@@ -206,7 +198,7 @@ def test_torch_nic_beam_matches_icee(rng):
     import torch.nn as nn
 
     from icee_tpu.checkpoint.torch_import import import_nic_decoder_state_dict
-    from icee_tpu.ops.pallas_beam import mega_beam_decode
+    from icee_tpu.decode.fast import beam_fn
 
     torch.manual_seed(5)
     cell = nn.LSTMCell(E, H)
@@ -221,14 +213,11 @@ def test_torch_nic_beam_matches_icee(rng):
 
     batch = 3
     feats_t = torch.randn(batch, E, generator=torch.Generator().manual_seed(8))
-    feats_j = jnp.asarray(feats_t.numpy())[:, None, :].repeat(K, axis=1)
+    feats_j = jnp.asarray(feats_t.numpy())
 
     want = [_torch_nic_beam(sd, cell, feats_t[i:i + 1])
             for i in range(batch)]
-    res = mega_beam_decode(
-        params, feats_j, jnp.asarray(0), batch, start_token=1, end_token=2,
-        k=K, max_seq_length=MAX_STEPS, n_img_block=3, v_tile=96,
-        cell="lstm", interpret=True)
+    res = beam_fn("nic", params, batch, K, MAX_STEPS, V, 1, 2)(feats_j, 0)
     for i in range(batch):
         got = np.asarray(res.tokens[i][: int(res.length[i])]).tolist()
         assert got == want[i][0], f"img {i}: {want[i][0]} != {got}"
@@ -326,7 +315,7 @@ def test_torch_attention_beam_matches_icee(rng):
     from icee_tpu.checkpoint.torch_import import (
         import_factored_att_decoder_state_dict,
     )
-    from icee_tpu.ops.pallas_att_decode import mega_att_beam_decode
+    from icee_tpu.decode.fast import beam_fn
 
     sd = _att_state_dict()
     params = import_factored_att_decoder_state_dict(sd)
@@ -337,10 +326,8 @@ def test_torch_attention_beam_matches_icee(rng):
 
     want = [_torch_att_beam(sd, "attention_happy", "happy_",
                             feats_t[i:i + 1]) for i in range(batch)]
-    res = mega_att_beam_decode(
-        params, feats_j, jnp.asarray(1), batch, start_token=1, end_token=2,
-        k=K, max_seq_length=MAX_STEPS, n_img_block=3, v_tile=96,
-        interpret=True)
+    res = beam_fn("stylenet_att", params, batch, K, MAX_STEPS, V, 1,
+                  2)(feats_j, 1)
     for i in range(batch):
         got = np.asarray(res.tokens[i][: int(res.length[i])]).tolist()
         assert got == want[i][0], f"img {i}: {want[i][0]} != {got}"

@@ -1,7 +1,7 @@
 """Device-resident whole-epoch training (``data/device.py`` +
 ``MultitaskTrainer._run_train_device``).
 
-The TPU-native epoch: the split pinned on device, one jitted ``lax.scan``
+The device-resident epoch: the split pinned on device, one jitted ``lax.scan``
 over shuffled batch-index rows per epoch (the captioner analogue of the
 SentiCap Theano shared-array path, ``senticap/mrnn/mrnn.py:581-596``; the
 reference captioners re-feed every batch from host workers,
@@ -701,3 +701,22 @@ def test_pin_plan_bf16_halves_walls():
         11, (196, 2048), budget, bytes_per_feature=2) == "per_batch"
     assert device_data.pin_plan(
         9, (196, 2048), budget, bytes_per_feature=2) == "epoch"
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("platform,stats,want", [
+    ("gpu", {"bytes_limit": 60 << 30}, 15 << 30),   # a quarter of it
+    ("gpu", None, device_data.CPU_BUDGET_BYTES),     # no stats reported
+    ("cpu", {"bytes_limit": 60 << 30}, device_data.CPU_BUDGET_BYTES),
+])
+def test_default_budget_bytes(platform, stats, want):
+    got = device_data.default_budget_bytes(_FakeDevice(platform, stats))
+    assert got == want

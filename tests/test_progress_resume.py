@@ -207,7 +207,7 @@ def test_factual_only_kill_resume(data, tmp_path):
 
 
 def test_save_is_crash_atomic(tmp_path):
-    """A kill can land DURING an orbax save — the previous record must
+    """A kill can land DURING a save — the previous record must
     survive every instant of ``save_progress``'s write+swap sequence."""
     import os
 

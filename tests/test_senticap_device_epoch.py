@@ -2,7 +2,7 @@
 ``make_base_epoch`` / ``make_switched_epoch``).
 
 The reference's epoch is N compiled ``train(indx)`` calls over Theano
-shared arrays (``senticap/mrnn/mrnn.py:727-770``); the TPU-native epoch
+shared arrays (``senticap/mrnn/mrnn.py:727-770``); the device-resident epoch
 collapses those N dispatches into ONE jitted ``lax.scan`` over the epoch's
 (n_batches, batch) index matrix.  The scan carries the PRNG key and splits
 it exactly like the host loop, so parameters, optimizer state, and the

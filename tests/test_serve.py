@@ -188,3 +188,43 @@ def test_real_engine_smoke_tiny(tmp_path, tiny_vocab):
     # a second mode reuses the compiled pipelines without error
     out2 = engine.caption(img_path, "sad")
     assert set(out2) == set(out)
+
+
+def _no_pillow(monkeypatch):
+    import builtins
+
+    real_import = builtins.__import__
+
+    def fake_import(name, *a, **k):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("no Pillow")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", fake_import)
+
+
+@pytest.mark.parametrize("decoder", ["pillow", "native", "none"])
+def test_upload_decoder_choice(monkeypatch, decoder):
+    """The engine picks its JPEG decoder when it starts: Pillow, else the
+    libjpeg decoder built from native/imagedec.cpp; with neither it refuses
+    to start, naming both, instead of failing at the first request."""
+    from icee_tpu.data import transforms
+    from icee_tpu.native import imagedec
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "examples", "data", "img", "i1.jpg")
+    if decoder != "pillow":
+        _no_pillow(monkeypatch)
+    if decoder == "none":
+        monkeypatch.setattr(imagedec, "native_available", lambda: False)
+        with pytest.raises(RuntimeError, match="Pillow.*libjpeg"):
+            transforms.pick_image_decoder(32)
+        return
+    if decoder == "native":
+        monkeypatch.setattr(imagedec, "native_available", lambda: True)
+        monkeypatch.setattr(
+            imagedec, "decode_resize_paths",
+            lambda paths, size: np.zeros((len(paths), size, size, 3),
+                                         np.uint8))
+    img = transforms.pick_image_decoder(32)(path)
+    assert img.shape == (32, 32, 3) and img.dtype == np.uint8

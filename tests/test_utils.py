@@ -146,27 +146,3 @@ def test_exporter_and_inspector_roundtrip(tmp_path, tiny_vocab):
         "--vocab_path", str(tmp_path / "vocab.pkl"),
         "--embed_size", "8", "--hidden_size", "12", "--factored_size", "12",
     ]))
-
-
-def test_kernel_common_policies():
-    """One shared policy module drives every kernel family's interpret
-    auto-rule and batch-tile ladder (ops/kernel_common.py)."""
-    from icee_tpu.ops import kernel_common as kc
-    from icee_tpu.ops import (pallas_att_train, pallas_lstm,
-                              pallas_nic_train, pallas_senticap_train)
-
-    for mod in (pallas_att_train, pallas_lstm, pallas_nic_train,
-                pallas_senticap_train):
-        assert mod._resolve_interpret is kc.resolve_interpret
-    assert pallas_nic_train._auto_tile is kc.auto_batch_tile
-    assert pallas_senticap_train._auto_tile is kc.auto_batch_tile
-
-    # explicit flag wins; auto interprets off-TPU (tests run on CPU)
-    assert kc.resolve_interpret(True) is True
-    assert kc.resolve_interpret(False) is False
-    assert kc.resolve_interpret(None) is True
-
-    assert kc.auto_batch_tile(96) == 96      # whole batch when <= 128
-    assert kc.auto_batch_tile(256) == 128    # largest divisor on the ladder
-    assert kc.auto_batch_tile(192) == 64
-    assert kc.auto_batch_tile(250) == 250    # nothing divides -> whole batch
